@@ -1,8 +1,8 @@
-"""nanopt, the TPU way — a minimal JAX path tracer in ~100 lines.
+"""nanopt, the wavefront way — a minimal JAX path tracer in ~100 lines.
 
 The reference grows from a 110-line CPU tracer (smallpt2pbrt/nanopt.cpp:
 8 spheres, diffuse+mirror, recursive radiance, OpenMP rows) to the full
-framework. This is the same pedagogy for the TPU design: one ray per lane,
+framework. This is the same pedagogy for the data-parallel design: one ray per lane,
 a masked `lax.scan` instead of recursion, counter-based RNG instead of
 erand48, and the whole image as a single jitted wavefront.
 

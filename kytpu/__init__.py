@@ -1,7 +1,7 @@
-"""kytpu — a TPU-native differentiable path tracer.
+"""kytpu — a differentiable path tracer in JAX/XLA/Pallas.
 
 A brand-new physically-based rendering framework with the capabilities of the
-reference C++ path tracer (infancy/ky, see SURVEY.md), re-designed TPU-first:
+reference C++ path tracer (infancy/ky, see SURVEY.md), re-designed for data-parallel accelerators:
 
 - **Wavefront integration**: the iterative path-tracing loop
   (reference: ky.cpp:4523-4618) becomes a masked, fixed-depth `lax.scan` over a

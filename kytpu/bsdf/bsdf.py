@@ -1,11 +1,11 @@
 """Vectorized BSDFs: Lambert, perfect mirror, Fresnel glass, modified Phong.
 
-TPU-first inversion of the reference's BSDF/material layers
+Data-parallel inversion of the reference's BSDF/material layers
 (ky.cpp:1914-2686): instead of `material_t::scattering` heap-allocating a
 virtual `bsdf_t` per hit (ky.cpp:3083), every ray lane carries a small
 `BsdfParams` record (type id + colors + scalars) resolved from the hit
 surface's material row. eval/pdf/sample compute all four models elementwise
-and select by type id — pure VPU code, no dispatch, no allocation.
+and select by type id — pure elementwise code, no dispatch, no allocation.
 
 Model parity targets (re-derived, not transcribed):
   - Lambert rho/pi, cosine-hemisphere sampling     (ky.cpp:2217-2268)
@@ -180,7 +180,7 @@ def _phong_cosine_lobe_sample(u, exponent):
 def sample_local(params: BsdfParams, wo, u2) -> BsdfSample:
     """Sample wi ~ the lobe; returns f, wi, pdf, delta-flag (all (N,...)).
 
-    Computes every model's sample and selects by kind — the TPU equivalent of
+    Computes every model's sample and selects by kind — the data-parallel equivalent of
     virtual dispatch. The glass branch consumes u2[...,0] as its
     reflect/refract Russian-roulette draw (ky.cpp:2375).
     """

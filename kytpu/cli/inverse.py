@@ -72,6 +72,8 @@ def run_texture_recovery(args):
 
 
 def main(argv=None):
+    from kytpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--mode", choices=("albedo", "texture"), default="albedo")
     p.add_argument("--tex-res", type=int, default=16,

@@ -240,7 +240,7 @@ def main(argv=None):
                         default=None, help="t,s mesh shape for SPMD render")
         sp.add_argument("--engine", choices=("jnp", "pallas", "bigscene"),
                         default="jnp",
-                        help="pallas = fused TPU megakernel (production "
+                        help="pallas = fused GPU megakernel (production "
                              "estimator; the strategy-matrix drivers always "
                              "use the jnp engine); bigscene = table-driven "
                              "megakernel for hundreds+ surfaces (O(1) "
@@ -268,6 +268,8 @@ def main(argv=None):
                             help="render a Wavefront OBJ file instead")
         sp.set_defaults(fn=fn)
     args = p.parse_args(argv)
+    from kytpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -1,6 +1,6 @@
 """Orthonormal shading frames, batched.
 
-TPU-native replacement for the reference's `frame_t` (ky.cpp:526-578,
+Batched replacement for the reference's `frame_t` (ky.cpp:526-578,
 SmallVCM-style construction): frames are just three (N, 3) arrays, and the
 world<->local transforms are elementwise dot products — no objects, no
 per-hit allocation.

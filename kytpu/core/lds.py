@@ -10,7 +10,7 @@ stays unbiased while each site's draws are stratified to ~O(log n / n)
 discrepancy instead of O(n^-1/2).
 
 Everything is uint32 bit arithmetic + one uint->float ladder, vectorized
-over lanes — XLA maps it straight onto the VPU (these helpers are for the
+over lanes — XLA maps it straight onto vector units (these helpers are for the
 jnp integrators; the Pallas kernel keeps its on-core PRNG).
 """
 

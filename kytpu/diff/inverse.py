@@ -82,7 +82,8 @@ def make_train_step(scene, target, spp: int = 4,
                     optimizer=None, loss_fn=klosses.relmse, mesh=None,
                     engine: str = "jnp", param_spaces: dict | None = None,
                     names: tuple | None = None,
-                    kernel_sampler: str | None = None):
+                    kernel_sampler: str | None = None,
+                    interpret: bool | None = None):
     """Build (step, params0, opt_state0).
 
     step(params, opt_state, key) -> (params, opt_state, loss); jitted.
@@ -96,7 +97,7 @@ def make_train_step(scene, target, spp: int = 4,
     shard_map transpose of the replicated parameter tables emits one psum
     over the kernel-computed gradients.
     `kernel_sampler` (engine="pallas") picks the in-kernel sampler:
-    default "random" (on-core PRNG) single-device, "hash" under a mesh —
+    default "random" (tile-keyed hash) single-device, "hash" under a mesh —
     the hash/sobol streams are pure functions of (key, pixel, sample,
     site), making the sharded step MESH-SHAPE-INVARIANT and comparable
     lane-for-lane with a single-device kernel_sampler="hash" step.
@@ -107,7 +108,9 @@ def make_train_step(scene, target, spp: int = 4,
     `names` selects the trainable leaves (diff.params.TRAINABLE by
     default; add "mat_exponent" to recover Phong glossiness — under
     engine="pallas" this switches the kernel to its trainable-exponent
-    replay backward).
+    backward).
+    `interpret` (engine="pallas"): run the kernels in Pallas' interpreter;
+    None chooses it exactly when JAX's default backend is the CPU.
     """
     from kytpu.diff.params import TRAINABLE, make_codec
 
@@ -132,14 +135,7 @@ def make_train_step(scene, target, spp: int = 4,
         kcfg = kwf.KernelConfig(max_depth=cfg.max_depth,
                                 trainable_exponent=train_exp,
                                 sampler=kernel_sampler)
-        on_tpu = any("TPU" in getattr(dev, "device_kind", "")
-                     for dev in jax.devices())
-        # CPU fallback: under a mesh the TPU-semantics interpreter's host
-        # callbacks deadlock inside the SPMD grad — use pallas' generic
-        # (callback-free) interpreter there (exact: no pltpu primitives
-        # run when hw_rng is off)
-        interp = False if on_tpu else (
-            "generic" if mesh is not None else True)
+        interpret = kwf.resolve_interpret(interpret)
         env0 = (scene.env_radiance_ if scene.has_env
                 else jnp.zeros(3, jnp.float32))
         has_tex = bool(scene.has_textures)
@@ -151,32 +147,17 @@ def make_train_step(scene, target, spp: int = 4,
             kinds = np.asarray(scene.textures.kind)
             has_img = any(int(kinds[int(t)]) == ktex_mod.IMAGE
                           for t in tid if int(t) >= 0)
-        if has_img and kcfg.bwd_rows == 0:
-            import dataclasses
-            th_i, tw_i = scene.textures.image.shape[1:3]
-            if (th_i * tw_i > kwf._KERNEL_MAX_TEXELS
-                    or (th_i & (th_i - 1)) or (tw_i & (tw_i - 1))):
-                # separable-fetch atlases: the residual backward carries a
-                # (3*th, tw) adjoint accumulator — halve its tile so the
-                # kernel fits scoped VMEM at 256^2 (measured: rows=16
-                # overflows by 1.2 MB, rows=8 fits)
-                kcfg = dataclasses.replace(kcfg, bwd_rows=8)
-        # scene-scale routing (same rule as integrator.render): past ~64
-        # surfaces the baked kernel's compile is O(N) — train through the
-        # table kernel's residual backward instead when eligible
-        # (textured scenes included; its texture adjoints match the baked
-        # kernel's, tests/test_bigscene.py::test_bigscene_texture_gradients)
-        tracer = None
-        if int(scene.mat_kind.shape[0]) > 64:
-            from kytpu.kernels import bigscene as kbig
-            try:
-                tracer = kbig.make_bigscene_diff_tracer(
-                    scene, kcfg, interpret=interp)
-            except NotImplementedError:
-                tracer = None
-        if tracer is None:
+        # scene-scale routing (the rule of every engine="pallas" entry
+        # point, bigscene.use_table_kernel): past TABLE_KERNEL_MIN_ROWS
+        # surfaces train through the table kernel when it can take the
+        # scene, else through the baked kernel
+        from kytpu.kernels import bigscene as kbig
+        if kbig.use_table_kernel(scene):
+            tracer = kbig.make_bigscene_diff_tracer(scene, kcfg,
+                                                    interpret=interpret)
+        else:
             tracer = kwf.make_pallas_diff_tracer(scene, kcfg,
-                                                 interpret=interp)
+                                                 interpret=interpret)
         npix = w * h
         cam = scene.camera
         use_lds = kcfg.sampler in ("hash", "sobol")

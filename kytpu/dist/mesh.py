@@ -1,7 +1,7 @@
 """Device meshes for sharded rendering.
 
 The reference's only parallelism is an OpenMP row loop (ky.cpp:3696-3701).
-The TPU-native equivalent is a 2D logical mesh:
+The accelerator equivalent is a 2D logical mesh:
 
   - "tile": pixels (the film is sharded; each device owns a contiguous strip
     of flat pixel rows — the moral equivalent of OpenMP's dynamic row chunks,
@@ -9,9 +9,10 @@ The TPU-native equivalent is a 2D logical mesh:
   - "spp":  samples-per-pixel (Monte Carlo replication; partial sums are
     reduced with one psum over this axis per pass).
 
-On a pod slice, "tile" should map to the slower (DCN/host) dimension — film
-tiles stay host-local and never cross DCN — while "spp" rides ICI where the
-psum is cheap. On a single host both axes live on ICI.
+The cards of one host are joined all to all (NVLink), so the mesh shape
+follows the algorithm alone: the only collective is one psum over "spp" per
+pass. Across hosts, "tile" should map to the host dimension, so film tiles
+stay host-local and only the spp psum crosses the slower links.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ def default_mesh_shape(n_devices: int, spp: int | None = None) -> tuple[int, int
     """Pick (tile, spp) axis sizes for n_devices.
 
     Prefers sample-axis parallelism up to 4-way (keeps per-device pixel
-    strips large for VPU efficiency), then tiles.
+    strips large, so each device's kernel launches stay full), then tiles.
     """
     s = 1
     if spp is None:

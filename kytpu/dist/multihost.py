@@ -44,8 +44,8 @@ def initialize(coordinator_address: str | None = None,
                platform: str | None = None) -> None:
     """Join (or create) a multi-process JAX runtime.
 
-    On TPU pods the three Nones let JAX discover everything from the
-    environment (the standard pod bootstrap). For CPU-backend testing /
+    On managed clusters the three Nones let JAX discover everything from
+    the environment; on a bare host pass them explicitly. For CPU-backend testing /
     development, pass them explicitly and set `platform="cpu"` with
     `local_devices=k` to expose k virtual chips per process over gloo
     collectives. Must run before any other JAX use in the process.

@@ -139,14 +139,13 @@ def render_sharded_pallas(scene, mesh: Mesh, spp: int = 16, seed: int = 1234,
     reduction order. kernel_cfg.sampler == "sobol" gets the same
     invariance with low-discrepancy points. The one exception is
     nee="single", whose scalar per-tile light pick depends on the tile
-    decomposition. Pass kernel_cfg.sampler == "prng" to force the
-    device-seeded on-core PRNG (fastest; reproducible per mesh shape
-    only).
+    decomposition. Pass kernel_cfg.sampler == "tile" to force the
+    tile-keyed hash streams (the single-device "random" sampler;
+    reproducible per mesh shape only).
 
     engine: "pallas" (the baked-geometry megakernel), "bigscene" (the
     table-driven megakernel, O(1) compile in the surface count), or
-    "auto" — bigscene past 64 surfaces when the scene is table-eligible,
-    matching integrator.render's routing. Both tracers share the lane
+    "auto" — bigscene.use_table_kernel, integrator.render's routing. Both tracers share the lane
     signature, so the mesh decomposition is identical.
     """
     import dataclasses
@@ -158,18 +157,12 @@ def render_sharded_pallas(scene, mesh: Mesh, spp: int = 16, seed: int = 1234,
     if cfg.sampler == "random":
         # the sharded default is the decomposition-invariant hash sampler
         cfg = dataclasses.replace(cfg, sampler="hash")
-    elif cfg.sampler == "prng":
-        # explicit opt-in to the device-seeded on-core PRNG
+    elif cfg.sampler == "tile":
+        # explicit opt-in to the tile-keyed streams
         cfg = dataclasses.replace(cfg, sampler="random")
     if engine == "auto":
-        engine = "pallas"
-        if int(scene.mat_kind.shape[0]) > 64:
-            from kytpu.kernels import bigscene as kbig
-            try:
-                kbig.extract_tables(scene)
-                engine = "bigscene"
-            except NotImplementedError:
-                pass
+        from kytpu.kernels import bigscene as kbig
+        engine = "bigscene" if kbig.use_table_kernel(scene) else "pallas"
     if engine == "bigscene":
         from kytpu.kernels import bigscene as kbig
         tracer = kbig.make_bigscene_tracer(scene, cfg, interpret=interpret)

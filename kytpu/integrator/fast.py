@@ -3,7 +3,7 @@
 The reference's `both_mis` estimator draws an INDEPENDENT BSDF sample per
 light per vertex (ky.cpp:3981-4029 inside the per-light loop, 3864-3869),
 so a bounce with L lights costs 2L+1 full scene sweeps. This module is the
-TPU-first production formulation with the same expectation:
+Accelerator-first production formulation with the same expectation:
 
   - the extension ray doubles as the BSDF-side MIS sample for EVERY light:
     when it hits an emitter (or the environment), the emission is weighted

@@ -117,7 +117,8 @@ def _render_mean(scene, spp, seed, cfg, mode, aov, rays_per_pass):
 def render(scene, spp: int = 16, seed: int = 1234,
            cfg: kpath.PathConfig | None = None, mode: str = "path",
            aov: str | None = None, clamp: bool = True,
-           rays_per_pass: int = 1 << 20, engine: str = "jnp"):
+           rays_per_pass: int = 1 << 20, engine: str = "jnp",
+           interpret: bool | None = None):
     """Render a full frame; returns (H, W, 3) float32.
 
     mode: "path" (the wavefront path tracer), "fast" (production
@@ -126,19 +127,20 @@ def render(scene, spp: int = 16, seed: int = 1234,
     engine: "jnp" (XLA op graph), "pallas" (the fused megakernel; ignores
     mode/cfg.variant — it always runs the production transport), or
     "bigscene" (the table-driven megakernel: O(1) compile in the surface
-    count, for scenes with hundreds-plus surfaces). "pallas" with a scene
-    past ~64 surfaces auto-routes to "bigscene" when eligible (untextured,
-    parallelogram rects) — baked-constant compiles blow up there.
+    count, for scenes with hundreds-plus surfaces). "pallas" routes to
+    "bigscene" by bigscene.use_table_kernel (past 64 surfaces, when the
+    table kernel can take the scene) — baked-constant compiles blow up
+    there.
     `clamp` reproduces the reference's per-pixel clamp01-of-the-mean
     (ky.cpp:3726); disable for HDR output or differentiable use.
+    `interpret` (kernel engines): run the Pallas kernels in the
+    interpreter; None chooses it exactly when JAX's default backend is
+    the CPU.
     """
-    if engine == "pallas" and int(scene.mat_kind.shape[0]) > 64:
+    if engine == "pallas":
         from kytpu.kernels import bigscene as kbig
-        try:
-            kbig.extract_tables(scene)
+        if kbig.use_table_kernel(scene):
             engine = "bigscene"
-        except NotImplementedError:
-            pass
     if engine == "bigscene":
         from kytpu.kernels import bigscene as kbig
         from kytpu.kernels import wavefront as kwf
@@ -152,28 +154,30 @@ def render(scene, spp: int = 16, seed: int = 1234,
                 shadow=getattr(cfg, "shadow", "parity"))
         return kbig.render_bigscene(scene, spp=spp, seed=seed, cfg=kcfg,
                                     clamp=clamp,
-                                    rays_per_pass=rays_per_pass)
+                                    rays_per_pass=rays_per_pass,
+                                    interpret=kwf.resolve_interpret(
+                                        interpret))
     if engine == "pallas":
         from kytpu.kernels import wavefront as kwf
         if isinstance(cfg, kwf.KernelConfig):
             kcfg = cfg
         else:
             # PathConfig(sampler="sobol") maps to the kernel's in-kernel
-            # Owen-Sobol lanes (lower MSE and faster than the hw PRNG)
+            # Owen-Sobol lanes
             kcfg = kwf.KernelConfig(
                 max_depth=getattr(cfg, "max_depth", 5),
                 sampler=("sobol" if getattr(cfg, "sampler", "") == "sobol"
                          else "random"),
                 shadow=getattr(cfg, "shadow", "parity"))
         return kwf.render_pallas(scene, spp=spp, seed=seed, cfg=kcfg,
-                                 clamp=clamp, rays_per_pass=rays_per_pass)
+                                 clamp=clamp, rays_per_pass=rays_per_pass,
+                                 interpret=kwf.resolve_interpret(interpret))
     # "fast"/"path" are accepted aliases of "jnp" (the cfg TYPE selects
     # the integrator inside trace_lanes)
     if engine not in ("jnp", "fast", "path"):
         raise ValueError(
             f"unknown engine {engine!r}: expected 'jnp', 'pallas' or "
-            "'bigscene' (the hybrid per-bounce-sweep engine was removed "
-            "in round 4 — see docs/ROADMAP.md item D)")
+            "'bigscene'")
     cfg = cfg or kpath.PathConfig()
     if cfg.sampler == "stratified" and cfg.strata == (1, 1):
         import dataclasses

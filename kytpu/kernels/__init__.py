@@ -1,11 +1,13 @@
-"""Pallas TPU kernels: the fused wavefront path-tracing megakernel.
+"""Pallas kernels (Triton route): the fused wavefront path-tracing
+megakernels.
 
-`wavefront.render_tiles_pallas` runs the entire bounce loop of the
+`wavefront.make_pallas_tracer` runs the entire bounce loop of the
 production integrator (kytpu.integrator.fast) inside one Pallas kernel:
-ray state lives in VMEM as (rows, 128) component planes for the whole path,
-scene geometry is baked into the instruction stream as compile-time
-constants, and material/light color tables stream in as small VMEM arrays
-so renders stay parameterized. See kernels/v3.py for the plane-SoA vector
+ray state lives in registers as (rows, 128) component planes for the whole
+path, scene geometry is baked into the instruction stream as compile-time
+constants, and material/light color tables are small global arrays read as
+scalars, so renders stay parameterized. `bigscene` is the table-driven
+variant for scenes with hundreds of surfaces. See kernels/v3.py for the plane-SoA vector
 algebra the kernel is written in.
 """
 

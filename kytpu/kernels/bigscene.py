@@ -1,52 +1,42 @@
-"""Table-driven Pallas megakernel for LARGE scenes (hundreds to thousands
-of surfaces).
+"""Table-driven Pallas megakernel (Pallas through Triton) for LARGE
+scenes (hundreds to thousands of surfaces).
 
-The production megakernel (kernels/wavefront.py) bakes geometry into the
-instruction stream — unbeatable per-ray cost, but code size and compile
+The baked megakernel (kernels/wavefront.py) bakes geometry into the
+instruction stream — the lowest per-ray cost, but code size and compile
 time grow O(N) and the per-surface-row material machinery (select chains,
 adjoint accumulators) assumes a handful of rows. This variant keeps the
-same VMEM-resident bounce loop but sweeps geometry with
+same register-resident bounce loop but sweeps geometry with
 `jax.lax.fori_loop` over SoA parameter tables:
 
   - one (rows, cols) table per shape class (tri/rect = shared layout,
     disk, sphere), geometry columns first, material columns after — the
-    closest-hit loop reads whole rows and CARRIES the winning hit's
-    material through the sweep (per-lane dynamic gathers don't exist on
-    the VPU; a select per column per surface is the TPU-native gather,
-    and it amortizes to ~15 extra vector ops per surface);
+    closest-hit loop reads whole rows as scalars (uniform across the
+    block, so every thread reads the same L1-resident address) and
+    CARRIES the winning hit's material through the sweep;
   - occlusion loops read only the geometry columns;
-  - loop bodies are unrolled x8: measured 93 Gtests/s vs 106 baked and
-    41 un-unrolled on v5e (benchmarks/bigscene_probe.py) — within 12% of
-    the baked sweep at O(1) code size and flat ~16 s compiles;
-  - tables live in SMEM when they fit (fast scalar reads), else VMEM
-    (measured 55 Gtests/s, scales past 4k surfaces; SMEM tables above
-    ~16-32 KB fail to compile on v5e).
+  - the sweeps walk UNROLL-row blocks of the Morton-sorted tables, and
+    each block can be skipped by a conservative cone cull;
+  - tables are global arrays read through L1/L2.
 
 Transport is the same single-sample-MIS estimator as the baked kernel
 (emission MIS-weighted against the light pdf of the ray that found it,
 per-light NEE with the merged multi-ray occlusion sweep, iteration-rule
 Russian roulette, ky.cpp:4523-4618 semantics), so it converges to the
 same image as the jnp engines and the baked kernel. Differentiable
-(make_bigscene_diff_tracer: path-replay backward with hit-row-tagged
-adjoint planes segment-summed on the host graph) and sampler-complete
-(random hw-PRNG or the in-kernel Owen-Sobol lanes of the baked kernel,
-cfg.sampler="sobol"). No textures (textured scenes route to the baked
-kernel or the jnp engines).
-
-Measured (v5e, random_spheres, depth 3, 1M lanes): see BASELINE.md — the
-jnp chunked sweep does 0.41 Mrays/s at 1026 surfaces; this kernel's
-per-bounce cost is ~(1+L) * N table tests at 55-93 Gtests/s.
+(make_bigscene_diff_tracer: residual or path-replay backward with
+hit-row-tagged adjoint planes segment-summed in XLA), sampler-complete
+(the stateless hash streams and the in-kernel Owen-Sobol lanes of the
+baked kernel) and textured (checker and image textures on planar rows,
+through the baked kernel's texture code).
 """
 
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from kytpu import bsdf as kbsdf
 from kytpu.core import math as km
@@ -57,9 +47,6 @@ from kytpu.scene import shapes as kshapes
 
 LANE = 128
 UNROLL = 8
-# total table bytes above which tables move from SMEM to VMEM (SMEM
-# tables between 16 and 32 KB already fail to compile on v5e)
-SMEM_TABLE_LIMIT = 12 * 1024
 
 # planar table columns: geometry (occlusion loops read only these) ...
 PG_NX, PG_NY, PG_NZ, PG_CN = 0, 1, 2, 3          # plane normal, n.anchor
@@ -129,6 +116,40 @@ def _block_bounds(centers, radii):
     return out
 
 
+# above this many surface rows the baked kernel's O(N) unrolled sweeps
+# make compiles grow past what a render is worth; the table kernel's
+# compile is O(1) in the surface count
+TABLE_KERNEL_MIN_ROWS = 64
+
+
+def ineligibility(scene):
+    """None if the table kernel can render `scene`, else the reason: it
+    needs triangles, parallelogram rects, disks and spheres, with textures
+    on planar rows only."""
+    err = wf._kernel_texture_support(scene)
+    if err:
+        return err
+    g = jax.device_get(scene.geometry)
+    for i in range(g.n_planar):
+        if int(np.asarray(g.pl_kind[i])) != kshapes.RECT:
+            continue
+        p0, p1, p2, p3 = (np.asarray(v[i], np.float64)
+                          for v in (g.pl_p0, g.pl_p1, g.pl_p2, g.pl_p3))
+        if not np.allclose(p3, p0 + p2 - p1, rtol=1e-5, atol=1e-7):
+            return ("the table-driven kernel supports triangles, "
+                    "parallelogram rectangles, disks and spheres — rect "
+                    f"{i} is not a parallelogram")
+    return None
+
+
+def use_table_kernel(scene) -> bool:
+    """The routing rule of every engine="pallas" entry point: the table
+    kernel for scenes past TABLE_KERNEL_MIN_ROWS surface rows that it can
+    render, the baked kernel otherwise."""
+    return (int(scene.mat_kind.shape[0]) > TABLE_KERNEL_MIN_ROWS
+            and ineligibility(scene) is None)
+
+
 def extract_tables(scene):
     """Host-side extraction: geometry as numpy column blocks per shape
     class + the surface-row index of each table row (for gathering the
@@ -140,19 +161,13 @@ def extract_tables(scene):
     bounding spheres feed the in-kernel cone cull (cfg.cull).
 
     Returns (static, tables) where tables = {class: (geo_np, rows_np,
-    bounds_np)}. Raises NotImplementedError for non-parallelogram rects
-    and textured scenes (route those to the baked kernel / jnp engines).
+    bounds_np)}. Raises NotImplementedError for scenes table_eligible
+    rejects (callers route by that predicate first).
     """
-    if getattr(scene, "has_textures", False):
-        err = wf._kernel_texture_support(scene)
-        if err:
-            raise NotImplementedError(err)
+    err = ineligibility(scene)
+    if err:
+        raise NotImplementedError(err)
     static = wf.extract_static(scene)
-    if any(r.get("sep") for r in static.get("textures", [])):
-        raise NotImplementedError(
-            "the table kernel's in-kernel image fetch is the select chain "
-            f"(<= {wf._KERNEL_MAX_TEXELS} pow2 texels); larger / non-pow2 "
-            "atlases run on the baked kernel or the jnp engines")
     tris, rects, disks = [], [], []
     tri_rows, rect_rows, disk_rows = [], [], []
     tri_b, rect_b, disk_b = [], [], []   # per-entry (center, radius)
@@ -341,36 +356,32 @@ def _sphere_row_parts(tab_ref, s, o: V3, d: V3):
     return c, r, cc, neg_b, discr
 
 
+def _block(i, body, cy):
+    """The UNROLL rows of block i (an inner loop: one copy of the row
+    test in the compiled kernel keeps compiles short)."""
+    return jax.lax.fori_loop(i * UNROLL, (i + 1) * UNROLL, body, cy)
+
+
 def _fori(n_rows, body, carry):
-    """Unrolled-by-UNROLL fori_loop over padded table rows."""
+    """fori_loop over padded table rows, in UNROLL-row blocks."""
     if n_rows == 0:
         return carry
-
-    def outer(i, cy):
-        for k in range(UNROLL):
-            cy = body(i * UNROLL + k, cy)
-        return cy
-
-    return jax.lax.fori_loop(0, n_rows // UNROLL, outer, carry)
+    return jax.lax.fori_loop(0, n_rows // UNROLL,
+                             lambda i, cy: _block(i, body, cy), carry)
 
 
 def _fori_culled(n_rows, body, carry, block_pred):
-    """_fori, but each UNROLL-row block is skipped entirely (lax.cond —
-    a real branch on this TPU, measured 5.5x faster when false:
-    benchmarks/cull_probe.py) when block_pred(i) says no ray can meet
-    the block's bounding sphere."""
+    """_fori, but each UNROLL-row block is skipped entirely (lax.cond on
+    a block-uniform scalar, so the whole program branches together) when
+    block_pred(i) says no ray can meet the block's bounding sphere."""
     if n_rows == 0:
         return carry
     if block_pred is None:
         return _fori(n_rows, body, carry)
 
     def outer(i, cy):
-        def run(c):
-            for k in range(UNROLL):
-                c = body(i * UNROLL + k, c)
-            return c
-
-        return jax.lax.cond(block_pred(i), run, lambda c: c, cy)
+        return jax.lax.cond(block_pred(i), lambda c: _block(i, body, c),
+                            lambda c: c, cy)
 
     return jax.lax.fori_loop(0, n_rows // UNROLL, outer, carry)
 
@@ -429,10 +440,11 @@ def _cone_hits_block(cone, bref, i, tmax=None):
     return hit
 
 
-def _closest_hit_tables(refs, counts, o: V3, d: V3, bounds=None):
+def _closest_hit_tables(refs, counts, o: V3, d: V3, bounds=None,
+                        cull_on=True):
     """Table-sweep closest hit. Returns the _Carry tuple (+ valid mask).
 
-    bounds: optional (tri_b, rect_b, disk_b, sph_b) SMEM block-bound refs —
+    bounds: optional (tri_b, rect_b, disk_b, sph_b) block-bound refs —
     enables the per-block cone cull (exact-conservative; identical
     results, fewer row tests on coherent tiles)."""
     tri_ref, rect_ref, disk_ref, sph_ref = refs
@@ -441,7 +453,8 @@ def _closest_hit_tables(refs, counts, o: V3, d: V3, bounds=None):
     if bounds is not None:
         cone = _ray_cone(o, d)
         preds = [
-            (lambda i, b=b: _cone_hits_block(cone, b, i))
+            (lambda i, b=b: _cull_gate(_cone_hits_block(cone, b, i),
+                                       cull_on))
             if b is not None else None for b in bounds]
 
     def planar_body(tri, geo_cols):
@@ -494,13 +507,14 @@ def _closest_hit_tables(refs, counts, o: V3, d: V3, bounds=None):
 
 
 def _any_hit_tables(refs, counts, hp: V3, n_shade: V3, rays,
-                    robust: bool = False, own=None, bounds=None, nd=None):
+                    robust: bool = False, own=None, bounds=None, nd=None,
+                    cull_on=True):
     """Merged K-ray occlusion over the tables (geometry columns only);
     the wavefront._any_hit_multi algebra with traced per-row scalars.
 
     The hit accumulators are fori_loop CARRIES, so they live as int32
-    planes (Mosaic cannot materialize bool vectors); masks inside the body
-    stay compare-born. Returns K bool masks.
+    planes; masks inside the body stay compare-born. Returns K bool
+    masks.
 
     own: per-ray (table kind, table row) of the sampled light's own
     geometry, or None — the robust shadow mode gates that row out of ray
@@ -536,7 +550,7 @@ def _any_hit_tables(refs, counts, hp: V3, n_shade: V3, rays,
                 for cone, tm in cones:
                     hk = _cone_hits_block(cone, b, i, tmax=tm)
                     h = hk if h is None else (h | hk)
-                return h
+                return _cull_gate(h, cull_on)
             return pred
 
         preds = [union_pred(b) if b is not None else None for b in bounds]
@@ -633,497 +647,6 @@ def _any_hit_tables(refs, counts, hp: V3, n_shade: V3, rays,
     return [h != 0 for h in hits]
 
 
-_PREC = jax.lax.Precision.HIGHEST   # f32 multi-pass; DEFAULT is 1-pass bf16
-
-
-def _mxu_dot(W, P):
-    """(M, 3) @ (3, 128) on the MXU with full-f32 passes."""
-    return jax.lax.dot_general(
-        W, P, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32, precision=_PREC)
-
-
-def _resolve_sweep(cfg: wf.KernelConfig, counts) -> bool:
-    """cfg.sweep -> use_mxu. "auto" = mxu past 64 surfaces: below that the
-    baked kernel exists and tests assert bitwise table==baked parity, which
-    the matmul's last-ulp rounding would break; above it the mxu sweep is
-    4-8x (benchmarks/mxu_probe.py)."""
-    if cfg.sweep == "mxu":
-        return True
-    if cfg.sweep == "scalar":
-        return False
-    return sum(counts.values()) > 64
-
-
-def _row_pair(v3: V3, r):
-    """(3, 128) coordinate matrix of lane-row r of a (ROWS, 128) V3."""
-    return jnp.concatenate([v3.x[r:r + 1, :], v3.y[r:r + 1, :],
-                            v3.z[r:r + 1, :]], axis=0)
-
-
-def _subl_best(tc, base, iota, best_t, best_row):
-    """Fold the (S, 128) candidate t's of one class into the running
-    per-lane best. Ties: lowest row in class, earliest class — matching
-    the scalar sweep's strict `t < t_best` accept order."""
-    tmin = jnp.min(tc, axis=0, keepdims=True)                   # (1,128)
-    win = jnp.min(jnp.where(tc == tmin, iota, np.int32(2 ** 30)),
-                  axis=0, keepdims=True)
-    upd = tmin < best_t
-    best_row = jnp.where(upd, win + np.int32(base), best_row)
-    best_t = jnp.where(upd, tmin, best_t)
-    return best_t, best_row
-
-
-SBLK = 64    # epilogue surface-block: (64,128) intermediates stay in
-             # vregs; full-(S,128) epilogues spill to VMEM and run 3-4x
-             # slower (the round-3 sublane-sweep pathology)
-
-
-def _chunk_rows(n_rows, S, n_vecs):
-    """Lane-rows per batched matmul: keep the (S, n_vecs*chunk*128) f32
-    result ~<8 MB of VMEM while minimizing call count (each HIGHEST-pass
-    matmul call costs ~0.5 ms of overhead at N=128 — measured
-    overhead-bound by 10x, benchmarks/mxu_probe.py)."""
-    budget = 512 * 1024      # ~2 MB: the 16 MB scoped-vmem limit must
-    c = max(1, budget // max(S * n_vecs * LANE, 1))   # also hold the
-    return int(min(n_rows, c))                        # transport state
-
-
-def _closest_hit_tables_mxu(refs, counts, o: V3, d: V3):
-    """MXU-form closest hit: same carry as _closest_hit_tables.
-
-    The per-surface-constant dot products run as (S,3)@(3,N) matmuls on
-    the MXU (full-f32 HIGHEST passes; surfaces in sublanes, lane-rows
-    batched along N), the root/inside epilogue is (S,128) elementwise per
-    lane-row, the class/row winner comes from a sublane min+argmin, and
-    the winner's geometry+material columns are gathered with EXACT
-    one-hot matmuls (a one-hot gather is exact under HIGHEST: the bf16
-    split of each table value reassembles under 1.0/0.0 weights).
-    Family operands are separate (S,3) column slices — Mosaic cannot
-    concatenate slices with different lane offsets but takes them as
-    matmul operands directly.
-
-    The sphere selection uses the matmul (naive) discriminant — its
-    |oc|^2*eps cancellation tail can flip ~1e-4 of grazing winners vs the
-    scalar sweep — and the winner's t and normal are then RECOMPUTED per
-    lane in the stable perp-decomposition form, which is what makes the
-    naive form safe (the round-2 NaN chain started from a non-unit
-    normal, not from the winner pick). Block cone culls don't apply (a
-    matmul has no blocks); the whole-tile dead skip still wraps this
-    call."""
-    tri_ref, rect_ref, disk_ref, sph_ref = refs
-    eps = km.SHAPE_EPSILON
-    INF = np.float32(np.inf)
-    n_rows = o.x.shape[0]
-    S_tri, S_rect = counts["tri"], counts["rect"]
-    S_disk, S_sph = counts["disk"], counts["sphere"]
-    base_rect = S_tri
-    base_disk = S_tri + S_rect
-    base_sph = base_disk + S_disk
-
-    classes = []
-    for name, ref, S, base in (("tri", tri_ref, S_tri, 0),
-                               ("rect", rect_ref, S_rect, base_rect)):
-        if not S:
-            continue
-        consts = (ref[:, PG_NX:PG_NZ + 1], ref[:, PG_F1X:PG_F1Z + 1],
-                  ref[:, PG_F2X:PG_F2Z + 1], ref[:, PG_CN:PG_CN + 1],
-                  ref[:, PG_K1:PG_K1 + 1], ref[:, PG_K2:PG_K2 + 1])
-        classes.append(("planar", name, base, S, ref, consts))
-    if S_disk:
-        p0x = disk_ref[:, DG_PX:DG_PX + 1]
-        p0y = disk_ref[:, DG_PY:DG_PY + 1]
-        p0z = disk_ref[:, DG_PZ:DG_PZ + 1]
-        consts = (disk_ref[:, DG_NX:DG_NZ + 1],
-                  disk_ref[:, DG_PX:DG_PZ + 1],
-                  disk_ref[:, DG_CN:DG_CN + 1],
-                  p0x * p0x + p0y * p0y + p0z * p0z,
-                  disk_ref[:, DG_R2:DG_R2 + 1])
-        classes.append(("disk", "disk", base_disk, S_disk, disk_ref,
-                        consts))
-    if S_sph:
-        rs_ = sph_ref[:, SG_R:SG_R + 1]
-        c2 = (sph_ref[:, SG_CX:SG_CX + 1] ** 2
-              + sph_ref[:, SG_CY:SG_CY + 1] ** 2
-              + sph_ref[:, SG_CZ:SG_CZ + 1] ** 2)
-        consts = (sph_ref[:, SG_CX:SG_CZ + 1], rs_, c2)
-        classes.append(("sphere", "sphere", base_sph, S_sph, sph_ref,
-                        consts))
-
-    Po = [_row_pair(o, r) for r in range(n_rows)]
-    Pd = [_row_pair(d, r) for r in range(n_rows)]
-    od = [jnp.sum(Po[r] * Pd[r], axis=0, keepdims=True)
-          for r in range(n_rows)]
-    o2 = [jnp.sum(Po[r] * Po[r], axis=0, keepdims=True)
-          for r in range(n_rows)]
-    best_t = [jnp.full((1, LANE), INF) for _ in range(n_rows)]
-    best_row = [jnp.full((1, LANE), np.int32(-1)) for _ in range(n_rows)]
-
-    for kind, name, base, S, ref, consts in classes:
-        iota = jax.lax.broadcasted_iota(jnp.int32, (S, LANE), 0)
-        chunk = _chunk_rows(n_rows, S, 2)
-        for r0 in range(0, n_rows, chunk):
-            rr = list(range(r0, min(r0 + chunk, n_rows)))
-            c = len(rr)
-            Ps = jnp.concatenate([Po[r] for r in rr]
-                                 + [Pd[r] for r in rr], axis=1)
-
-            def sl(D, j, off=0):
-                return D[:, (off * c + j) * LANE:(off * c + j + 1) * LANE]
-
-            if kind == "planar":
-                Wn, Wf1, Wf2, cn, k1, k2 = consts
-                Dn = _mxu_dot(Wn, Ps)
-                Df1 = _mxu_dot(Wf1, Ps)
-                Df2 = _mxu_dot(Wf2, Ps)
-                for j, r in enumerate(rr):
-                    for s0 in range(0, S, SBLK):
-                        s1 = min(s0 + SBLK, S)
-                        sb = slice(s0, s1)
-                        ib = iota[0:s1 - s0]
-                        t = (cn[sb] - sl(Dn, j)[sb]) / sl(Dn, j, 1)[sb]
-                        a = (sl(Df1, j)[sb] - k1[sb]) \
-                            + t * sl(Df1, j, 1)[sb]
-                        b = (sl(Df2, j)[sb] - k2[sb]) \
-                            + t * sl(Df2, j, 1)[sb]
-                        if name == "tri":
-                            inside = (a >= 0) & (b >= 0) & (a + b <= 1.0)
-                        else:
-                            inside = (a >= 0) & (a <= 1.0) \
-                                & (b >= 0) & (b <= 1.0)
-                        tc = jnp.where(inside & (t > eps), t, INF)
-                        best_t[r], best_row[r] = _subl_best(
-                            tc, base + s0, ib, best_t[r], best_row[r])
-            elif kind == "disk":
-                Wn, Wp, cn, p02, r2 = consts
-                Dn = _mxu_dot(Wn, Ps)
-                Dp = _mxu_dot(Wp, Ps)
-                for j, r in enumerate(rr):
-                    for s0 in range(0, S, SBLK):
-                        s1 = min(s0 + SBLK, S)
-                        sb = slice(s0, s1)
-                        ib = iota[0:s1 - s0]
-                        t = (cn[sb] - sl(Dn, j)[sb]) / sl(Dn, j, 1)[sb]
-                        rel2 = (o2[r] - 2.0 * sl(Dp, j)[sb] + p02[sb]) \
-                            + 2.0 * t * (od[r] - sl(Dp, j, 1)[sb]) + t * t
-                        tc = jnp.where((rel2 <= r2[sb]) & (t > eps),
-                                       t, INF)
-                        best_t[r], best_row[r] = _subl_best(
-                            tc, base + s0, ib, best_t[r], best_row[r])
-            else:
-                Wc, rs_, c2 = consts
-                Dc = _mxu_dot(Wc, Ps)
-                for j, r in enumerate(rr):
-                    for s0 in range(0, S, SBLK):
-                        s1 = min(s0 + SBLK, S)
-                        sb = slice(s0, s1)
-                        ib = iota[0:s1 - s0]
-                        rb_ = rs_[sb]
-                        neg_b = sl(Dc, j, 1)[sb] - od[r]
-                        oc2 = c2[sb] - 2.0 * sl(Dc, j)[sb] + o2[r]
-                        discr = rb_ * rb_ - oc2 + neg_b * neg_b
-                        cc = oc2 - rb_ * rb_
-                        sq = jnp.sqrt(jnp.maximum(discr, 0.0))
-                        sgn = jnp.where(neg_b >= 0.0, np.float32(1.0),
-                                        np.float32(-1.0))
-                        q = neg_b + sgn * sq
-                        tq = cc / q
-                        t1 = jnp.minimum(q, tq)
-                        t2 = jnp.maximum(q, tq)
-                        t1_ok = t1 > eps
-                        t = jnp.where(t1_ok, t1, t2)
-                        ok = (discr >= 0) & (rb_ > 0) \
-                            & (t1_ok | (t2 > eps))
-                        tc = jnp.where(ok, t, INF)
-                        best_t[r], best_row[r] = _subl_best(
-                            tc, base + s0, ib, best_t[r], best_row[r])
-
-    # ---- winner resolve: exact chunked one-hot gathers ----
-    geo_rows = [jnp.zeros((3, LANE), jnp.float32) for _ in range(n_rows)]
-    srad_rows = [jnp.zeros((1, LANE), jnp.float32) for _ in range(n_rows)]
-    mat_rows = [jnp.zeros((MAT_COLS, LANE), jnp.float32)
-                for _ in range(n_rows)]
-    for kind, name, base, S, ref, consts in classes:
-        n_cols = ref.shape[1]
-        chunk = _chunk_rows(n_rows, S, 1)
-        for r0 in range(0, n_rows, chunk):
-            rr = list(range(r0, min(r0 + chunk, n_rows)))
-            c = len(rr)
-            loc = jnp.concatenate([best_row[r] for r in rr], axis=1) \
-                - np.int32(base)
-            iota_c = jax.lax.broadcasted_iota(jnp.int32, (S, c * LANE), 0)
-            oh = jnp.where(iota_c == loc, np.float32(1.0), np.float32(0.0))
-            colsT = jax.lax.dot_general(
-                ref[:, :], oh, dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32, precision=_PREC)
-            for j, r in enumerate(rr):
-                csl = colsT[:, j * LANE:(j + 1) * LANE]
-                if kind == "sphere":
-                    geo_rows[r] = geo_rows[r] + csl[SG_CX:SG_CZ + 1]
-                    srad_rows[r] = srad_rows[r] + csl[SG_R:SG_R + 1]
-                    mat_rows[r] = mat_rows[r] + csl[
-                        SPHERE_GEO_COLS:SPHERE_GEO_COLS + MAT_COLS]
-                elif kind == "disk":
-                    geo_rows[r] = geo_rows[r] + csl[DG_NX:DG_NZ + 1]
-                    mat_rows[r] = mat_rows[r] + csl[
-                        DISK_GEO_COLS:DISK_GEO_COLS + MAT_COLS]
-                else:
-                    geo_rows[r] = geo_rows[r] + csl[PG_NX:PG_NZ + 1]
-                    mat_rows[r] = mat_rows[r] + csl[
-                        PLANAR_GEO_COLS:PLANAR_GEO_COLS + MAT_COLS]
-
-    t = jnp.concatenate(best_t, axis=0)                    # (ROWS,128)
-    grow = jnp.concatenate(best_row, axis=0)
-    gx = jnp.concatenate([g[0:1] for g in geo_rows], axis=0)
-    gy = jnp.concatenate([g[1:2] for g in geo_rows], axis=0)
-    gz = jnp.concatenate([g[2:3] for g in geo_rows], axis=0)
-    sr = jnp.concatenate(srad_rows, axis=0)
-    mat = [jnp.concatenate([m[cc:cc + 1] for m in mat_rows], axis=0)
-           for cc in range(MAT_COLS)]
-
-    # ---- winner post-pass on full planes ----
-    is_sph = grow >= np.int32(base_sph)
-    if S_sph:
-        # stable perp-decomposition recompute of the winner's t; the
-        # sphere normal then comes out unit-length by construction
-        c = V3(gx, gy, gz)
-        oc = c - o
-        neg_b = oc.dot(d)
-        perp = oc - d * neg_b
-        discr = sr * sr - perp.length_squared()
-        cc = oc.length_squared() - sr * sr
-        sq = jnp.sqrt(jnp.maximum(discr, 0.0))
-        sgn = jnp.where(neg_b >= 0.0, np.float32(1.0), np.float32(-1.0))
-        q = neg_b + sgn * sq
-        tq = cc / q
-        t1 = jnp.minimum(q, tq)
-        t2 = jnp.maximum(q, tq)
-        t1_ok = t1 > eps
-        tp = jnp.where(t1_ok, t1, t2)
-        tp = jnp.where(jnp.isfinite(tp) & (tp > eps), tp, INF)
-        t = jnp.where(is_sph, tp, t)
-        inv_r = np.float32(1.0) / jnp.maximum(sr, np.float32(1e-20))
-        n_sp = (o + d * jnp.where(jnp.isfinite(t), t, 1.0) - c) * inv_r
-        nx = jnp.where(is_sph, n_sp.x, gx)
-        ny = jnp.where(is_sph, n_sp.y, gy)
-        nz = jnp.where(is_sph, n_sp.z, gz)
-    else:
-        nx, ny, nz = gx, gy, gz
-    if S_rect:
-        # two-sided rects: flip the winner's normal toward the ray
-        is_rect = (grow >= np.int32(base_rect)) \
-            & (grow < np.int32(base_disk))
-        flip = is_rect & (nx * d.x + ny * d.y + nz * d.z > 0)
-        nx = jnp.where(flip, -nx, nx)
-        ny = jnp.where(flip, -ny, ny)
-        nz = jnp.where(flip, -nz, nz)
-
-    miss = grow < 0
-    t = jnp.where(miss, INF, t)
-    vals = dict(t=t, nx=nx, ny=ny, nz=nz,
-                difx=mat[M_DIFX], dify=mat[M_DIFY], difz=mat[M_DIFZ],
-                spcx=mat[M_SPCX], spcy=mat[M_SPCY], spcz=mat[M_SPCZ],
-                emix=mat[M_EMIX], emiy=mat[M_EMIY], emiz=mat[M_EMIZ],
-                kind=mat[M_KIND], exp=mat[M_EXP], eta=mat[M_ETA],
-                sprob=mat[M_SPROB], dprob=mat[M_DPROB], lix=mat[M_LIX],
-                row=mat[M_ROW])
-    # misses must carry the scalar sweep's init values (lix/row = -1)
-    vals["lix"] = jnp.where(miss, np.float32(-1.0), vals["lix"])
-    vals["row"] = jnp.where(miss, np.float32(-1.0), vals["row"])
-    return tuple(vals[f] for f in _Carry.FIELDS)
-
-
-def _any_hit_tables_mxu(refs, counts, hp: V3, n_shade: V3, rays,
-                        robust: bool = False, own=None, nd=None):
-    """MXU-form merged K-ray occlusion (same semantics as
-    _any_hit_tables, no block culls): per lane-row, surface-constant dots
-    against hp / n_shade / each ray direction run as batched matmuls and
-    the range/inside epilogue is (S,128) elementwise with a sublane
-    any(). The K+2 per-lane vectors of a row chunk share one matmul per
-    family."""
-    tri_ref, rect_ref, disk_ref, sph_ref = refs
-    eps = km.SHAPE_EPSILON
-    K = len(rays)
-    n_rows = hp.x.shape[0]
-    if nd is None:
-        nd = [n_shade.dot(wi) for wi, _ in rays]
-    se = [jnp.where(nd[k] < 0.0, np.float32(-km.RAY_OFFSET),
-                    np.float32(km.RAY_OFFSET)) for k in range(K)]
-    if robust:
-        rays = [(rays[k][0], rays[k][1] - se[k] * nd[k]) for k in range(K)]
-    off2 = np.float32(km.RAY_OFFSET * km.RAY_OFFSET)
-
-    def own_row(kind_name, k):
-        if own is not None and own[k] is not None \
-                and own[k][0] == kind_name:
-            return np.int32(own[k][1])
-        return None
-
-    classes = []
-    for name, ref, S in (("tri", tri_ref, counts["tri"]),
-                         ("rect", rect_ref, counts["rect"])):
-        if not S:
-            continue
-        consts = (ref[:, PG_NX:PG_NZ + 1], ref[:, PG_F1X:PG_F1Z + 1],
-                  ref[:, PG_F2X:PG_F2Z + 1], ref[:, PG_CN:PG_CN + 1],
-                  ref[:, PG_K1:PG_K1 + 1], ref[:, PG_K2:PG_K2 + 1])
-        classes.append(("planar", name, S, consts))
-    if counts["disk"]:
-        S = counts["disk"]
-        p0x = disk_ref[:, DG_PX:DG_PX + 1]
-        p0y = disk_ref[:, DG_PY:DG_PY + 1]
-        p0z = disk_ref[:, DG_PZ:DG_PZ + 1]
-        consts = (disk_ref[:, DG_NX:DG_NZ + 1],
-                  disk_ref[:, DG_PX:DG_PZ + 1],
-                  disk_ref[:, DG_CN:DG_CN + 1],
-                  p0x * p0x + p0y * p0y + p0z * p0z,
-                  disk_ref[:, DG_R2:DG_R2 + 1])
-        classes.append(("disk", "disk", S, consts))
-    if counts["sphere"]:
-        S = counts["sphere"]
-        rs_ = sph_ref[:, SG_R:SG_R + 1]
-        c2 = (sph_ref[:, SG_CX:SG_CX + 1] ** 2
-              + sph_ref[:, SG_CY:SG_CY + 1] ** 2
-              + sph_ref[:, SG_CZ:SG_CZ + 1] ** 2)
-        classes.append(("sphere", "sphere", S,
-                        (sph_ref[:, SG_CX:SG_CZ + 1], rs_, c2)))
-
-    Ph = [_row_pair(hp, r) for r in range(n_rows)]
-    Pn = [_row_pair(n_shade, r) for r in range(n_rows)]
-    Pw = [[_row_pair(rays[k][0], r) for k in range(K)]
-          for r in range(n_rows)]
-    hp2 = [jnp.sum(Ph[r] * Ph[r], axis=0, keepdims=True)
-           for r in range(n_rows)]
-    hpn = [jnp.sum(Ph[r] * Pn[r], axis=0, keepdims=True)
-           for r in range(n_rows)]
-    hpw = [[jnp.sum(Ph[r] * Pw[r][k], axis=0, keepdims=True)
-            for k in range(K)] for r in range(n_rows)]
-    nsw = [[nd[k][r:r + 1, :] for k in range(K)] for r in range(n_rows)]
-    se_r = [[se[k][r:r + 1, :] for k in range(K)] for r in range(n_rows)]
-    tmax_r = [[rays[k][1][r:r + 1, :] for k in range(K)]
-              for r in range(n_rows)]
-    hits_r = [[jnp.zeros((1, LANE), jnp.float32) for _ in range(K)]
-              for _ in range(n_rows)]
-
-    def acc_hit(r, k, h):
-        hits_r[r][k] = jnp.maximum(
-            hits_r[r][k],
-            jnp.max(jnp.where(h, np.float32(1.0), np.float32(0.0)),
-                    axis=0, keepdims=True))
-
-    n_vec = 2 + K
-    for cls in classes:
-        kind, name, S = cls[0], cls[1], cls[2]
-        consts = cls[3]
-        iota = jax.lax.broadcasted_iota(jnp.int32, (S, LANE), 0)
-        chunk = _chunk_rows(n_rows, S, n_vec)
-        for r0 in range(0, n_rows, chunk):
-            rr = list(range(r0, min(r0 + chunk, n_rows)))
-            c = len(rr)
-            Ps = jnp.concatenate(
-                [Ph[r] for r in rr] + [Pn[r] for r in rr]
-                + [Pw[r][k] for k in range(K) for r in rr], axis=1)
-
-            def sl(D, j, off=0):
-                return D[:, (off * c + j) * LANE:(off * c + j + 1) * LANE]
-
-            if kind == "planar":
-                Wn, Wf1, Wf2, cn, k1, k2 = consts
-                Dn = _mxu_dot(Wn, Ps)
-                Df1 = _mxu_dot(Wf1, Ps)
-                Df2 = _mxu_dot(Wf2, Ps)
-                for j, r in enumerate(rr):
-                    for s0 in range(0, S, SBLK):
-                        s1 = min(s0 + SBLK, S)
-                        sb = slice(s0, s1)
-                        ib = iota[0:s1 - s0]
-                        num_h = cn[sb] - sl(Dn, j)[sb]
-                        num_n = sl(Dn, j, 1)[sb]
-                        a_h = sl(Df1, j)[sb] - k1[sb]
-                        a_n = sl(Df1, j, 1)[sb]
-                        b_h = sl(Df2, j)[sb] - k2[sb]
-                        b_n = sl(Df2, j, 1)[sb]
-                        for k in range(K):
-                            t = (num_h - se_r[r][k] * num_n) \
-                                / sl(Dn, j, 2 + k)[sb]
-                            a = (a_h + se_r[r][k] * a_n) \
-                                + t * sl(Df1, j, 2 + k)[sb]
-                            b = (b_h + se_r[r][k] * b_n) \
-                                + t * sl(Df2, j, 2 + k)[sb]
-                            if name == "tri":
-                                inside = (a >= 0) & (b >= 0) \
-                                    & (a + b <= 1.0)
-                            else:
-                                inside = (a >= 0) & (a <= 1.0) \
-                                    & (b >= 0) & (b <= 1.0)
-                            h = inside & (t > eps) & (t < tmax_r[r][k])
-                            orow = own_row(name, k)
-                            if orow is not None:
-                                h = h & (ib != orow - s0)
-                            acc_hit(r, k, h)
-            elif kind == "disk":
-                Wn, Wp, cn, p02, r2c = consts
-                Dn = _mxu_dot(Wn, Ps)
-                Dp = _mxu_dot(Wp, Ps)
-                for j, r in enumerate(rr):
-                    for s0 in range(0, S, SBLK):
-                        s1 = min(s0 + SBLK, S)
-                        sb = slice(s0, s1)
-                        ib = iota[0:s1 - s0]
-                        num_h = cn[sb] - sl(Dn, j)[sb]
-                        num_n = sl(Dn, j, 1)[sb]
-                        q2_h = hp2[r] - 2.0 * sl(Dp, j)[sb] + p02[sb]
-                        qn = hpn[r] - sl(Dp, j, 1)[sb]
-                        for k in range(K):
-                            t = (num_h - se_r[r][k] * num_n) \
-                                / sl(Dn, j, 2 + k)[sb]
-                            qw = hpw[r][k] - sl(Dp, j, 2 + k)[sb]
-                            rel2 = q2_h + 2.0 * se_r[r][k] * qn \
-                                + se_r[r][k] * se_r[r][k] \
-                                + 2.0 * t * (qw + se_r[r][k] * nsw[r][k]) \
-                                + t * t
-                            h = (rel2 <= r2c[sb]) & (t > eps) \
-                                & (t < tmax_r[r][k])
-                            orow = own_row("disk", k)
-                            if orow is not None:
-                                h = h & (ib != orow - s0)
-                            acc_hit(r, k, h)
-            else:
-                Wc, rs_, c2 = consts
-                Dc = _mxu_dot(Wc, Ps)
-                for j, r in enumerate(rr):
-                    for s0 in range(0, S, SBLK):
-                        s1 = min(s0 + SBLK, S)
-                        sb = slice(s0, s1)
-                        ib = iota[0:s1 - s0]
-                        rb_ = rs_[sb]
-                        vc2 = c2[sb] - 2.0 * sl(Dc, j)[sb] + hp2[r]
-                        vcn = sl(Dc, j, 1)[sb] - hpn[r]
-                        for k in range(K):
-                            neg_b = (sl(Dc, j, 2 + k)[sb] - hpw[r][k]) \
-                                - se_r[r][k] * nsw[r][k]
-                            oc2 = vc2 - 2.0 * se_r[r][k] * vcn + off2
-                            discr = rb_ * rb_ - oc2 + neg_b * neg_b
-                            a_c = neg_b - eps
-                            b_c = neg_b - tmax_r[r][k]
-                            a2 = a_c * a_c
-                            b2 = b_c * b_c
-                            a_pos = a_c > 0.0
-                            b_neg = b_c < 0.0
-                            in1 = a_pos & (discr < a2) \
-                                & (b_neg | (discr > b2))
-                            in2 = (a_pos | (discr > a2)) & b_neg \
-                                & (discr < b2)
-                            h = (discr >= 0) & (rb_ > 0) & (in1 | in2)
-                            orow = own_row("sphere", k)
-                            if orow is not None:
-                                h = h & (ib != orow - s0)
-                            acc_hit(r, k, h)
-
-    return [jnp.concatenate([hits_r[r][k] for r in range(n_rows)],
-                            axis=0) > 0.0 for k in range(K)]
-
-
 def _bigres_layout(cfg: wf.KernelConfig, L: int, has_env: bool,
                    has_img: bool = False):
     """Plane order of the table kernel's coefficient cache (the residual
@@ -1166,26 +689,58 @@ def _bigres_layout(cfg: wf.KernelConfig, L: int, has_env: bool,
     return {t: i for i, t in enumerate(tags)}, len(tags)
 
 
-def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
-                 grad: bool = False, residual: bool = False):
+def _cull_gate(hit, cull_on):
+    """A block is swept if its cone test hits or the cull is off (cull_on:
+    python True, or a traced scalar mask)."""
+    return hit if cull_on is True else hit | ~cull_on
+
+
+def _first_bounce(bounce, bounds, sweep):
+    """sweep(bounds, cull_on) with the cone cull on at bounce 0 only: it
+    pays only on coherent camera rays. Inside the bounce loop the cull
+    predicate is or-ed with `bounce != 0`, so one copy of the sweep
+    serves every bounce."""
+    if bounds is None:
+        return sweep(None, True)
+    if isinstance(bounce, int):
+        return sweep(bounds if bounce == 0 else None, True)
+    return sweep(bounds, bounce == 0)
+
+
+def _tex_partial_planes(acc_ta, acc_tb):
+    """Checker color_a then color_b adjoint planes (3 per texture), the
+    order _unpack_tex_partials reads them back in."""
+    return [c for acc in (acc_ta, acc_tb) for v in acc for c in (v.x, v.y,
+                                                                 v.z)]
+
+
+def _unpack_tex_partials(parts, t_rows: int):
+    v = wf.sum_partials(parts, 6 * t_rows)
+    return (v[:3 * t_rows].reshape(t_rows, 3),
+            v[3 * t_rows:].reshape(t_rows, 3))
+
+
+def _make_kernel(static, counts, cfg: wf.KernelConfig, grad: bool = False,
+                 residual: bool = False):
     """Forward transport over the geometry/material tables — the
     single-sample-MIS estimator of wavefront._make_kernel (ky.cpp
     path_tracing_iteration_t semantics) with every per-surface-row select
     replaced by the carried hit-record columns.
 
     grad=True builds the path-replay backward (same structure as the baked
-    kernel's grad mode, wavefront.py:1571-2192): it re-runs the transport
-    on the same RNG stream carrying the tail radiance
-    R_{b+1} = (R_b - E_b)/T_b, and instead of per-material-row VMEM
-    accumulators (impossible at thousands of rows) it WRITES per-bounce
-    per-lane adjoint-contribution planes tagged with the hit row — the
-    caller segment-sums them into the (M, 3) gradients outside the kernel
-    (one one-hot matmul on the MXU). Output layout (dout, stacked planes):
+    kernel's grad mode): it re-runs the transport on the same RNG stream
+    carrying the tail radiance R_{b+1} = (R_b - E_b)/T_b, and instead of
+    per-material-row accumulators (impossible at thousands of rows) it
+    WRITES per-bounce per-lane adjoint-contribution planes tagged with the
+    hit row — the caller segment-sums them into the (M, 3) gradients in
+    XLA. Output layout (dout, planes):
       bounce b in [0, max_depth):  9 planes [dd.xyz, ds.xyz, de.xyz]
       horizon bounce:              3 planes [de.xyz]
       then 3 planes d_env and 3*L planes d_light_emit (per-lane sums over
       bounces; L = len(lights)); rows_out: (max_depth+1) int32 planes of
-      sid+1 (0 = miss)."""
+      sid+1 (0 = miss). Textured scenes add the checker-color partial
+      table (one row per program) and, with image textures, the
+      wavefront.TEX_PLANES texture-adjoint planes per shading bounce."""
     lights = static["lights"]
     L = len(lights)
     world_radius = static["world_radius"]
@@ -1212,7 +767,6 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
     tex_recs = static.get("textures", [])
     img_recs = [r for r in tex_recs if r.get("kind") == "image"]
     n_tex = static.get("n_textures", 0)
-    n_texels = static.get("n_texels", 0)
     # robust shadow mode: per-light (table, row) of its own geometry
     own_geo = None
     if cfg.shadow == "robust":
@@ -1224,7 +778,8 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
         own_geo = [own_of_light.get(i) for i in range(L)]
 
     use_cull = cfg.cull != "off"
-    use_mxu = _resolve_sweep(cfg, counts)
+    carry_phits = wf._lights_have_phit(lights, world_radius)
+    PB = 10 if use_texp else 9   # dout planes per bounce (dd ds de [dx])
 
     def kernel(seed_ref, tri_ref, rect_ref, disk_ref, sph_ref,
                *rest_refs):
@@ -1233,7 +788,7 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
         texb_ref = out_refs.pop(0) if tex_recs else None
         timg_ref = out_refs.pop(0) if img_recs else None
         if use_cull:
-            # per-UNROLL-block bounding spheres (SMEM) for the cone cull
+            # per-UNROLL-block bounding spheres for the cone cull
             bounds = tuple(
                 (out_refs.pop(0) if counts[k] else None)
                 for k in ("tri", "rect", "disk", "sphere"))
@@ -1250,47 +805,45 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
         pid = pl.program_id(0)
         tile_seed = seed_ref[0] + pid * np.int32(2654435761 & 0x7fffffff)
         if use_sobol:
-            rng = wf._Rng(tile_seed, False,
+            rng = wf._Rng(tile_seed,
                           sobol=(si_ref[:],
                                  wf._pix_hash(pix_ref[:], seed_ref[0])))
         elif use_hash:
             # mesh-invariant stateless streams (see wavefront._Rng)
             lane_seed = wf._pix_hash(si_ref[:],
                                      wf._pix_hash(pix_ref[:], seed_ref[0]))
-            rng = wf._Rng(lane_seed, False, per_lane=True)
+            rng = wf._Rng(lane_seed, per_lane=True)
         else:
-            if hw_rng:
-                pltpu.prng_seed(tile_seed)
-            rng = wf._Rng(tile_seed, hw_rng)
+            rng = wf._Rng(tile_seed)
 
         if grad:
             # (gx gy gz flx fly flz) inputs precede the outputs
             (gx_ref, gy_ref, gz_ref, flx_ref, fly_ref, flz_ref,
              dout_ref, rows_ref, *acc_refs) = out_refs
-            dta_ref = acc_refs.pop(0) if tex_recs else None
-            dtb_ref = acc_refs.pop(0) if tex_recs else None
-            dti_ref = acc_refs.pop(0) if img_recs else None
+            part_ref = acc_refs.pop(0) if tex_recs else None
+            tadj_ref = acc_refs.pop(0) if img_recs else None
             g = V3(gx_ref[:], gy_ref[:], gz_ref[:])
             r_tail = V3(flx_ref[:], fly_ref[:], flz_ref[:])
-            dplanes = []          # stacked in output order
-            row_planes = []       # per-bounce sid+1 int32 planes
-            acc_env = None
-            acc_le = [None] * L   # per-light d light_emit
+            def put(base, *planes):
+                """Store dout planes from index `base` (affine in the
+                bounce: PB planes per bounce, then the horizon's 3, the
+                env's 3 and 3 per light)."""
+                for k, v in enumerate(planes):
+                    dout_ref[base + k] = v
+            acc_env = v3_zeros(g.x)
+            acc_le = [v3_zeros(g.x) for _ in range(L)]  # d light_emit
             if tex_recs:
                 # textures are FEW even at scene scale: per-texture V3
                 # accumulators live in-kernel exactly as in the baked
-                # kernel (wavefront.py grad mode); their planes are
-                # summed across the grid into shared (0,0,0) out blocks
+                # kernel (wavefront.py grad mode), reduced per program
+                # into the partial table
                 acc_ta = [v3_zeros(gx_ref[:]) for _ in range(n_tex)]
                 acc_tb = [v3_zeros(gx_ref[:]) for _ in range(n_tex)]
-            if img_recs:
-                acc_ti = [v3_zeros(gx_ref[:]) for _ in range(n_texels)]
         elif residual:
             lx_ref, ly_ref, lz_ref, resf_ref, resi_ref = out_refs
             res_ix, res_n = _bigres_layout(cfg, L, env_i is not None,
                                            bool(img_recs))
-            res_planes = [None] * res_n
-            res_ints = [None] * (cfg.max_depth + 1)
+            ridx = wf._affine_index(res_ix, cfg.max_depth)
         else:
             lx_ref, ly_ref, lz_ref = out_refs
 
@@ -1304,10 +857,34 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
         pdf_prev = jnp.ones(shp, jnp.float32)
         phits_prev = None   # wavefront._light_sample phit carry
 
-        def v3add(a, b):
-            return b if a is None else a + b
+        def step(bounce, st):
+            """One bounce; `bounce` is the fori_loop's traced index, or the
+            python int max_depth for the horizon vertex."""
+            horizon = isinstance(bounce, int) and bounce == cfg.max_depth
+            o, d, beta, big_l = st["o"], st["d"], st["beta"], st["big_l"]
+            alive = st["alive"] != 0
+            spec_prev, pdf_prev = st["spec_prev"], st["pdf_prev"]
+            phits_prev = st.get("phits")
+            if grad:
+                r_tail, acc_env = st["r_tail"], st["acc_env"]
+                acc_le = list(st["acc_le"])
+                acc_ta = list(st["acc_ta"]) if tex_recs else None
+                acc_tb = list(st["acc_tb"]) if tex_recs else None
 
-        for bounce in range(cfg.max_depth + 1):
+            def pack():
+                out = dict(o=o, d=d, beta=beta, big_l=big_l,
+                           alive=alive.astype(jnp.int32),
+                           spec_prev=spec_prev, pdf_prev=pdf_prev)
+                if carry_phits:
+                    out["phits"] = list(phits_prev)
+                if grad:
+                    out.update(r_tail=r_tail, acc_env=acc_env,
+                               acc_le=acc_le)
+                    if tex_recs:
+                        out.update(acc_ta=acc_ta, acc_tb=acc_tb)
+                return out
+
+            rng.at_bounce(bounce)
             # whole-tile dead skip: path death is spatially clustered
             # (sky/miss regions of the film die together) and lanes are
             # pixel-ordered, so whole tiles go dead early — skip their
@@ -1317,22 +894,15 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
             # bounce 0 directions are hemispherical (obtuse cones test
             # every block and the 129 scalar tests are pure overhead —
             # measured net-negative), so cull only the primary sweep
-            b_bounds = bounds if bounce == 0 else None
-            if use_mxu:
-                def closest(_, o=o, d=d):
-                    return _closest_hit_tables_mxu(refs, counts, o, d)
-            else:
-                def closest(_, o=o, d=d, b_bounds=b_bounds):
-                    return _closest_hit_tables(refs, counts, o, d,
-                                               bounds=b_bounds)
-            if bounce == 0:
-                cy = closest(None)
-            else:
-                any_alive = jnp.max(jnp.where(alive, np.float32(1.0),
-                                              np.float32(0.0))) > 0.0
-                cy = jax.lax.cond(
-                    any_alive, closest,
-                    lambda _: _Carry.init(o.x.shape), None)
+            def closest(_):
+                return _first_bounce(
+                    bounce, bounds,
+                    lambda b, on: _closest_hit_tables(refs, counts, o, d,
+                                                      bounds=b, cull_on=on))
+            any_alive = jnp.max(jnp.where(alive, np.float32(1.0),
+                                          np.float32(0.0))) > 0.0
+            cy = jax.lax.cond(any_alive, closest,
+                              lambda _: _Carry.init(o.x.shape), None)
             (t, nx, ny, nz, difx, dify, difz, spcx, spcy, spcz,
              emix, emiy, emiz, kindf, expo, eta, sprob, dprob, lixf,
              rowf) = cy
@@ -1348,12 +918,7 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                     jnp.where(emit_mask, emiy, 0.0),
                     jnp.where(emit_mask, emiz, 0.0))
 
-            if bounce == 0:
-                full = True
-            elif has_delta:
-                full = spec_prev != 0
-            else:
-                full = False
+            full = wf._full_mis(bounce, spec_prev, has_delta)
             if full is True:
                 w_emit = jnp.ones(shp, jnp.float32)
             else:
@@ -1377,10 +942,10 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                 wbm = jnp.where(emit_mask, wb, 0.0)
                 de_b = g * beta * wbm
             elif residual:
-                res_planes[res_ix[("wb", bounce)]] = \
+                resf_ref[ridx(("wb", bounce))] = \
                     jnp.where(emit_mask, wb, 0.0)
                 for c, v in enumerate((emix, emiy, emiz)):
-                    res_planes[res_ix[("emi", bounce, c)]] = v
+                    resf_ref[ridx(("emi", bounce, c))] = v
 
             if env_i is not None:
                 env = V3(env_ref[0, 0] * jnp.ones(shp, jnp.float32),
@@ -1397,31 +962,31 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                 e_term = e_term + env * wenv
                 big_l = big_l + beta * env * wenv
                 if grad:
-                    acc_env = v3add(acc_env, g * beta * wenv)
+                    acc_env = acc_env + g * beta * wenv
                 elif residual:
-                    res_planes[res_ix[("wenv", bounce)]] = wenv
+                    resf_ref[ridx(("wenv", bounce))] = wenv
 
             if grad:
-                row_planes.append((rowf.astype(jnp.int32) + np.int32(1))
-                                  * valid.astype(jnp.int32))
-            if bounce == cfg.max_depth:
+                rows_ref[bounce] = ((rowf.astype(jnp.int32) + np.int32(1))
+                                    * valid.astype(jnp.int32))
+            if horizon:
                 if grad:
-                    dplanes.extend([de_b.x, de_b.y, de_b.z])
+                    put(PB * cfg.max_depth, de_b.x, de_b.y, de_b.z)
                 if residual:
-                    res_ints[bounce] = \
+                    resi_ref[bounce] = \
                         (rowf.astype(jnp.int32) + np.int32(1)) \
                         * valid.astype(jnp.int32)
-                continue
+                return pack()
             cont = alive & valid
 
             # material resolution from the carried columns
             diffuse = V3(difx, dify, difz)
             if tex_recs:
                 # textured rows are FEW even in big scenes: the baked
-                # kernel's static per-rec machinery (wavefront.py:873-996)
-                # applies unchanged, selected by the carried global row.
-                # Parity masks / bilinear taps are kept for the adjoint
-                # routing (grad) and the coefficient cache (residual).
+                # kernel's static per-rec machinery applies unchanged,
+                # selected by the carried global row. Parity masks /
+                # texel coordinates are kept for the adjoint routing
+                # (grad) and the coefficient cache (residual).
                 sid_i = rowf.astype(jnp.int32)
                 tex_par = [None if rec.get("kind") == "image"
                            else wf._checker_parity(static, rec, hp)
@@ -1429,12 +994,9 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                 tex_xy = [wf._image_uv_xy(static, rec, hp)
                           if rec.get("kind") == "image" else None
                           for rec in tex_recs]
-                tex_ws = [None if xy is None else wf._image_texel_weights(
-                              rec, *wf._image_taps_from_xy(rec, *xy))
-                          for rec, xy in zip(tex_recs, tex_xy)]
                 diffuse = wf._apply_textures(
                     static, texa_ref, texb_ref, timg_ref,
-                    sid_i, hp, diffuse, tex_par, tex_ws)
+                    sid_i, hp, diffuse, tex_par, tex_xy)
             specular = V3(spcx, spcy, spcz)
             is_matte = kindf == np.float32(kbsdf.MAT_MATTE)
             is_mirror = kindf == np.float32(kbsdf.MAT_MIRROR)
@@ -1492,12 +1054,11 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
             smps = [wf._light_sample(lt, world_radius, hp, nrm, u1, u2,
                                      azim) for lt in lights]
             nds = [nrm.dot(smp[0]) for smp in smps]
-            if all(smp[4] is not None for smp in smps):
+            if carry_phits:
                 phits_prev = [smp[4] for smp in smps]
             # whole-tile NEE skip mirrors the closest-hit one: if no lane
             # in this tile does NEE at this bounce, the occlusion sweep
-            # never runs (bool results cross the cond as int32 planes —
-            # Mosaic cannot materialize bool vectors)
+            # never runs (bool results cross the cond as int32 planes)
             any_nee = jnp.max(jnp.where(nee_act, np.float32(1.0),
                                         np.float32(0.0))) > 0.0
 
@@ -1506,24 +1067,11 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
             # sweep is block-culled at EVERY depth, in a separate group
             # from unbounded lights (env/direction — arbitrary directions
             # at 2*world_radius would widen the union cone to pass every
-            # block). MEASURED (2026-08-20, v5e, 1026 surfaces depth 3):
-            # pays only when lanes are spatially binned — unbinned
+            # block). It can pay only when lanes are spatially binned:
             # camera-order tiles have screen-wide hp clouds past bounce 0,
-            # so the cones stay fat and the ~129 per-block lax.cond tests
-            # are pure overhead (5.44 -> 4.79 M rays/s). Default "cone"
-            # keeps the round-3 behavior: one merged sweep, culled at the
-            # primary bounce only.
-            if use_mxu:
-                def occ_sweep(_):
-                    hs = _any_hit_tables_mxu(
-                        refs, counts, hp, nrm,
-                        [(smp[0], smp[3] - km.SHADOW_EPSILON)
-                         for smp in smps],
-                        robust=(cfg.shadow == "robust"), own=own_geo,
-                        nd=nds)
-                    return tuple(jnp.where(h, np.int32(1), np.int32(0))
-                                 for h in hs)
-            elif cfg.cull == "cone+nee":
+            # so the cones stay fat. Default "cone": one merged sweep,
+            # culled at the primary bounce only.
+            if cfg.cull == "cone+nee":
                 compact_i = [i for i, lt in enumerate(lights)
                              if lt["kind"] not in (klights.ENV,
                                                    klights.DIRECTION)]
@@ -1553,14 +1101,16 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                                  for h in hs)
             else:
                 def occ_sweep(_):
-                    hs = _any_hit_tables(
-                        refs, counts, hp, nrm,
-                        [(smp[0], smp[3] - km.SHADOW_EPSILON)
-                         for smp in smps],
-                        robust=(cfg.shadow == "robust"), own=own_geo,
-                        bounds=b_bounds, nd=nds)
-                    return tuple(jnp.where(h, np.int32(1), np.int32(0))
-                                 for h in hs)
+                    def sweep(b, on):
+                        hs = _any_hit_tables(
+                            refs, counts, hp, nrm,
+                            [(smp[0], smp[3] - km.SHADOW_EPSILON)
+                             for smp in smps],
+                            robust=(cfg.shadow == "robust"), own=own_geo,
+                            bounds=b, nd=nds, cull_on=on)
+                        return tuple(jnp.where(h, np.int32(1), np.int32(0))
+                                     for h in hs)
+                    return _first_bounce(bounce, bounds, sweep)
 
             occs_i = jax.lax.cond(
                 any_nee, occ_sweep,
@@ -1595,15 +1145,15 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                 bp = li_s * ucos * okf * lobe_scale
                 ld = ld + col_nee_tbl * emit_l * bp
                 if residual:
-                    res_planes[res_ix[("B", bounce, i)]] = bp
+                    resf_ref[ridx(("B", bounce, i))] = bp
                     if use_texp:
-                        res_planes[res_ix[("Bk", bounce, i)]] = jnp.where(
+                        resf_ref[ridx(("Bk", bounce, i))] = jnp.where(
                             lobe_is_phong,
                             bp * wf._kappa_dot(expo, cos_aw), 0.0)
                 if grad:
                     # d light emission (linear in Li; routed to the light's
                     # emitting surface row / env leaf by the caller)
-                    acc_le[i] = v3add(acc_le[i], gb * col_nee_tbl * bp)
+                    acc_le[i] = acc_le[i] + gb * col_nee_tbl * bp
                     # d material color (linear in eval): target by lobe
                     addc = gb * emit_l * bp
                     if has_plastic:
@@ -1642,32 +1192,35 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
             beta_new = beta * thr
             # kill f32-overflow lanes (see wavefront._make_kernel)
             ok = ok & (beta_new.max_component() < np.float32(np.inf))
-            if bounce > cfg.rr_start:
+            rr_on = wf._rr_active(bounce, cfg)
+            if rr_on is False:
+                scale = np.float32(1.0)
+                alive_n = ok
+            else:
                 u_rr = rng.uniform(shp)
                 q = jnp.maximum(np.float32(0.05),
                                 1.0 - beta_new.max_component())
-                kill = u_rr < q
-                scale = wf._safe_div(np.float32(1.0), 1.0 - q)
+                kill = (u_rr < q) & rr_on
+                scale = jnp.where(rr_on,
+                                  wf._safe_div(np.float32(1.0), 1.0 - q),
+                                  np.float32(1.0))
                 beta_new = beta_new * scale
                 alive_n = ok & ~kill
-            else:
-                scale = np.float32(1.0)
-                alive_n = ok
 
             if residual:
                 t_unit = f_unit_s * wf._safe_div(jnp.abs(wi_l.z),
                                                  pdf_s) * scale
                 tu_plane = jnp.where(alive_n, t_unit * lobe_scale, 0.0)
-                res_planes[res_ix[("tu", bounce)]] = tu_plane
+                resf_ref[ridx(("tu", bounce))] = tu_plane
                 if use_texp:
-                    res_planes[res_ix[("tuk", bounce)]] = jnp.where(
+                    resf_ref[ridx(("tuk", bounce))] = jnp.where(
                         lobe_is_phong,
                         tu_plane * wf._kappa(expo, wo_l, wi_l), 0.0)
                 for c, v in enumerate((diffuse.x, diffuse.y,
                                        diffuse.z)):
-                    res_planes[res_ix[("dif", bounce, c)]] = v
+                    resf_ref[ridx(("dif", bounce, c))] = v
                 for c, v in enumerate((spcx, spcy, spcz)):
-                    res_planes[res_ix[("spc", bounce, c)]] = v
+                    resf_ref[ridx(("spc", bounce, c))] = v
                 if has_delta or has_plastic:
                     to_spec_res = (is_mirror | (is_glass & ~glass_refract)
                                    | lobe_is_phong)
@@ -1690,7 +1243,7 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                         tex_even = jnp.where(onrow & tex_par[ti],
                                              np.int32(1), tex_even)
                     packed = packed + tex_even * np.int32(1 << 22)
-                res_ints[bounce] = packed
+                resi_ref[bounce] = packed
                 if img_recs:
                     # continuous texel coords of the hit on its image row
                     # (bilinear taps are a pure function of these)
@@ -1702,8 +1255,8 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                         onrow = sid_i == np.int32(rec["row"])
                         tx_pl = jnp.where(onrow, tex_xy[ti][0], tx_pl)
                         ty_pl = jnp.where(onrow, tex_xy[ti][1], ty_pl)
-                    res_planes[res_ix[("tx", bounce)]] = tx_pl
-                    res_planes[res_ix[("ty", bounce)]] = ty_pl
+                    resf_ref[ridx(("tx", bounce))] = tx_pl
+                    resf_ref[ridx(("ty", bounce))] = ty_pl
 
             if grad:
                 # tail radiance for the NEXT vertex:
@@ -1748,47 +1301,19 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                 if tex_recs:
                     # the diffuse VALUE on textured rows came from the
                     # texture, so its adjoint routes to the texture leaves
-                    # (by cell parity / bilinear tap weight — wavefront's
-                    # replay routing, wavefront.py:2195-2225) and the
-                    # row-tagged diffuse share is zeroed
-                    for ti, rec in enumerate(tex_recs):
-                        onrow = sid_i == np.int32(rec["row"])
-                        if rec.get("kind") == "image":
-                            base = rec["img"] * rec["th"] * rec["tw"]
-                            for k, wk in enumerate(tex_ws[ti]):
-                                wk = jnp.where(onrow, wk, 0.0)
-                                tt = base + k
-                                acc_ti[tt] = V3(
-                                    acc_ti[tt].x + addc_diff.x * wk,
-                                    acc_ti[tt].y + addc_diff.y * wk,
-                                    acc_ti[tt].z + addc_diff.z * wk)
-                        else:
-                            even = tex_par[ti]
-                            tt = rec["tex"]
-                            sel_a = onrow & even
-                            sel_b = onrow & ~even
-                            acc_ta[tt] = V3(
-                                acc_ta[tt].x
-                                + jnp.where(sel_a, addc_diff.x, 0.0),
-                                acc_ta[tt].y
-                                + jnp.where(sel_a, addc_diff.y, 0.0),
-                                acc_ta[tt].z
-                                + jnp.where(sel_a, addc_diff.z, 0.0))
-                            acc_tb[tt] = V3(
-                                acc_tb[tt].x
-                                + jnp.where(sel_b, addc_diff.x, 0.0),
-                                acc_tb[tt].y
-                                + jnp.where(sel_b, addc_diff.y, 0.0),
-                                acc_tb[tt].z
-                                + jnp.where(sel_b, addc_diff.z, 0.0))
-                        addc_diff = V3(
-                            jnp.where(onrow, 0.0, addc_diff.x),
-                            jnp.where(onrow, 0.0, addc_diff.y),
-                            jnp.where(onrow, 0.0, addc_diff.z))
-                dplanes.extend([addc_diff.x, addc_diff.y, addc_diff.z,
-                                addc_spec.x, addc_spec.y, addc_spec.z,
-                                de_b.x, de_b.y, de_b.z]
-                               + ([addx] if use_texp else []))
+                    # (checker colors by cell parity, image texels through
+                    # the texture-adjoint planes — wavefront's replay
+                    # routing) and the row-tagged diffuse share is zeroed
+                    if img_recs:
+                        wf.store_texel_planes(
+                            tadj_ref, bounce, static, sid_i,
+                            wf.image_hit_planes(static, sid_i, tex_xy, shp),
+                            addc_diff)
+                    addc_diff = wf._route_checker_adjoint(
+                        static, sid_i, tex_par, addc_diff, acc_ta, acc_tb)
+                put(PB * bounce, addc_diff.x, addc_diff.y, addc_diff.z,
+                    addc_spec.x, addc_spec.y, addc_spec.z,
+                    de_b.x, de_b.y, de_b.z, *([addx] if use_texp else []))
                 r_tail = r_next
 
             o = wf._offset_origin(hp, nrm, wi_w).where(alive_n, o)
@@ -1799,49 +1324,39 @@ def _make_kernel(static, counts, cfg: wf.KernelConfig, hw_rng: bool,
                                       spec_prev)
             pdf_prev = jnp.where(alive_n, pdf_s, pdf_prev)
             alive = alive_n
+            return pack()
+
+        st = dict(o=o, d=d, beta=beta, big_l=big_l,
+                  alive=alive.astype(jnp.int32), spec_prev=spec_prev,
+                  pdf_prev=pdf_prev)
+        if carry_phits:
+            st["phits"] = [jnp.zeros(shp, jnp.float32) for _ in range(L)]
+        if grad:
+            st.update(r_tail=r_tail, acc_env=acc_env, acc_le=acc_le)
+            if tex_recs:
+                st.update(acc_ta=acc_ta, acc_tb=acc_tb)
+        # bounces 0..max_depth-1 share one traced body; the horizon vertex
+        # runs after the loop with only its emission terms
+        st = jax.lax.fori_loop(0, cfg.max_depth, step, st)
+        st = step(cfg.max_depth, st)
+        big_l = st["big_l"]
+        if grad:
+            acc_env, acc_le = st["acc_env"], st["acc_le"]
+            if tex_recs:
+                acc_ta, acc_tb = st["acc_ta"], st["acc_tb"]
 
         if grad:
-            zero = jnp.zeros(shp, jnp.float32)
-            env_v = acc_env if acc_env is not None else v3_zeros(zero)
-            dplanes.extend([env_v.x, env_v.y, env_v.z])
+            base = PB * cfg.max_depth + 3
+            put(base, acc_env.x, acc_env.y, acc_env.z)
             for i in range(L):
-                le_v = acc_le[i] if acc_le[i] is not None else v3_zeros(zero)
-                dplanes.extend([le_v.x, le_v.y, le_v.z])
-            dout_ref[:] = jnp.stack(dplanes, axis=0)
-            rows_ref[:] = jnp.stack(row_planes, axis=0)
+                put(base + 3 + 3 * i, acc_le[i].x, acc_le[i].y, acc_le[i].z)
             if tex_recs:
-                def stack_acc(acc):
-                    planes = []
-                    for v in acc:
-                        planes.extend([v.x, v.y, v.z])
-                    return jnp.stack(planes, axis=0)
-
-                arr_ta = stack_acc(acc_ta)
-                arr_tb = stack_acc(acc_tb)
-                arr_ti = stack_acc(acc_ti) if img_recs else None
-
-                @pl.when(pid == 0)
-                def _():
-                    dta_ref[:] = arr_ta
-                    dtb_ref[:] = arr_tb
-                    if img_recs:
-                        dti_ref[:] = arr_ti
-
-                @pl.when(pid != 0)
-                def _():
-                    dta_ref[:] = dta_ref[:] + arr_ta
-                    dtb_ref[:] = dtb_ref[:] + arr_tb
-                    if img_recs:
-                        dti_ref[:] = dti_ref[:] + arr_ti
+                wf.store_partials(part_ref, _tex_partial_planes(acc_ta,
+                                                                acc_tb))
         else:
             lx_ref[:] = big_l.x
             ly_ref[:] = big_l.y
             lz_ref[:] = big_l.z
-            if residual:
-                assert all(pp is not None for pp in res_planes), \
-                    [t for t, k in res_ix.items() if res_planes[k] is None]
-                resf_ref[:] = jnp.stack(res_planes, axis=0)
-                resi_ref[:] = jnp.stack(res_ints, axis=0)
 
     return kernel
 
@@ -1850,46 +1365,60 @@ def _make_res_bwd_kernel(static, cfg: wf.KernelConfig, L: int,
                          has_env: bool):
     """Coefficient-cache backward for the table kernel: NO geometry
     sweeps, NO RNG — pure algebra over the _bigres_layout planes (the
-    bigscene analog of wavefront's residual backward, wavefront.py:2296,
-    emitting row-tagged adjoint planes instead of per-row accumulators).
+    bigscene analog of wavefront's residual backward, emitting row-tagged adjoint planes instead of per-row accumulators).
     Walks bounces FORWARD carrying (beta, tail radiance); every adjoint
     term is bilinear in (cached coefficient, cached color, light emit).
     Textured rows route the diffuse-value adjoint to the texture leaves
-    (checker parity from res_ints bit 22; bilinear taps rebuilt from the
-    cached "tx"/"ty" planes with pure floor/mask/FMA) and zero the
-    row-tagged diffuse share — wavefront's residual-texture convention."""
+    (checker parity from res_ints bit 22; image texels through the
+    texture-adjoint planes built from the cached "tx"/"ty" planes) and
+    zero the row-tagged diffuse share — wavefront's residual-texture
+    convention."""
     use_texp = cfg.trainable_exponent
     tex_recs = static.get("textures", [])
     img_recs = [r for r in tex_recs if r.get("kind") == "image"]
     n_tex = static.get("n_textures", 0)
-    n_texels = static.get("n_texels", 0)
     res_ix, res_n = _bigres_layout(cfg, L, has_env, bool(img_recs))
     B = cfg.max_depth
+    PB = 10 if use_texp else 9   # dout planes per bounce (dd ds de [dx])
+    ridx = wf._affine_index(res_ix, B)
 
     def kernel(light_emit_ref, env_ref, gx_ref, gy_ref, gz_ref,
                flx_ref, fly_ref, flz_ref, resf_ref, resi_ref, dout_ref,
                *acc_refs):
         acc_refs = list(acc_refs)
-        dta_ref = acc_refs.pop(0) if tex_recs else None
-        dtb_ref = acc_refs.pop(0) if tex_recs else None
-        dti_ref = acc_refs.pop(0) if img_recs else None
+        part_ref = acc_refs.pop(0) if tex_recs else None
+        tadj_ref = acc_refs.pop(0) if img_recs else None
         g = V3(gx_ref[:], gy_ref[:], gz_ref[:])
         r_tail = V3(flx_ref[:], fly_ref[:], flz_ref[:])
         shp = g.x.shape
         beta = v3_full(g.x, 1.0, 1.0, 1.0)
-        dplanes = []
+        def put(base, *planes):
+            for k, v in enumerate(planes):
+                dout_ref[base + k] = v
+
         acc_env = v3_zeros(g.x)
         acc_le = [v3_zeros(g.x) for _ in range(L)]
         if tex_recs:
             acc_ta = [v3_zeros(g.x) for _ in range(n_tex)]
             acc_tb = [v3_zeros(g.x) for _ in range(n_tex)]
-        if img_recs:
-            acc_ti = [v3_zeros(g.x) for _ in range(n_texels)]
 
         def rf(tag):
-            return resf_ref[res_ix[tag]]
+            return resf_ref[ridx(tag)]
 
-        for bounce in range(B + 1):
+        def step(bounce, st):
+            horizon = isinstance(bounce, int) and bounce == B
+            beta, r_tail, acc_env = st["beta"], st["r_tail"], st["acc_env"]
+            acc_le = list(st["acc_le"])
+            acc_ta = list(st["acc_ta"]) if tex_recs else None
+            acc_tb = list(st["acc_tb"]) if tex_recs else None
+
+            def pack():
+                out = dict(beta=beta, r_tail=r_tail, acc_env=acc_env,
+                           acc_le=acc_le)
+                if tex_recs:
+                    out.update(acc_ta=acc_ta, acc_tb=acc_tb)
+                return out
+
             ib = resi_ref[bounce]
             wb = rf(("wb", bounce))
             emi = V3(rf(("emi", bounce, 0)), rf(("emi", bounce, 1)),
@@ -1902,9 +1431,9 @@ def _make_res_bwd_kernel(static, cfg: wf.KernelConfig, L: int,
                 env = V3(env_ref[0, 0], env_ref[0, 1], env_ref[0, 2])
                 e_term = e_term + env * wenv
                 acc_env = acc_env + gb * wenv
-            if bounce == B:
-                dplanes.extend([de_b.x, de_b.y, de_b.z])
-                continue
+            if horizon:
+                put(PB * B, de_b.x, de_b.y, de_b.z)
+                return pack()
 
             phong = (ib & np.int32(1 << 20)) != 0
             spec_t = (ib & np.int32(1 << 21)) != 0
@@ -1959,81 +1488,39 @@ def _make_res_bwd_kernel(static, cfg: wf.KernelConfig, L: int,
                                + gb.y * r_next.y * spc.y
                                + gb.z * r_next.z * spc.z) * tuk
             if tex_recs:
-                row1 = ib & np.int32((1 << 20) - 1)
+                sid = (ib & np.int32((1 << 20) - 1)) - 1
                 even = (ib & np.int32(1 << 22)) != 0
                 if img_recs:
-                    tx = rf(("tx", bounce))
-                    ty = rf(("ty", bounce))
-                for rec in tex_recs:
-                    onrow = row1 == np.int32(rec["row"] + 1)
-                    if rec.get("kind") == "image":
-                        idx, wts = wf._image_taps_from_xy(rec, tx, ty)
-                        tws = wf._image_texel_weights(rec, idx, wts)
-                        base = rec["img"] * rec["th"] * rec["tw"]
-                        for k, wk in enumerate(tws):
-                            wk = jnp.where(onrow, wk, 0.0)
-                            tt = base + k
-                            acc_ti[tt] = V3(
-                                acc_ti[tt].x + addc_diff.x * wk,
-                                acc_ti[tt].y + addc_diff.y * wk,
-                                acc_ti[tt].z + addc_diff.z * wk)
-                    else:
-                        tt = rec["tex"]
-                        sel_a = onrow & even
-                        sel_b = onrow & ~even
-                        acc_ta[tt] = V3(
-                            acc_ta[tt].x
-                            + jnp.where(sel_a, addc_diff.x, 0.0),
-                            acc_ta[tt].y
-                            + jnp.where(sel_a, addc_diff.y, 0.0),
-                            acc_ta[tt].z
-                            + jnp.where(sel_a, addc_diff.z, 0.0))
-                        acc_tb[tt] = V3(
-                            acc_tb[tt].x
-                            + jnp.where(sel_b, addc_diff.x, 0.0),
-                            acc_tb[tt].y
-                            + jnp.where(sel_b, addc_diff.y, 0.0),
-                            acc_tb[tt].z
-                            + jnp.where(sel_b, addc_diff.z, 0.0))
-                    addc_diff = V3(jnp.where(onrow, 0.0, addc_diff.x),
-                                   jnp.where(onrow, 0.0, addc_diff.y),
-                                   jnp.where(onrow, 0.0, addc_diff.z))
-            dplanes.extend([addc_diff.x, addc_diff.y, addc_diff.z,
-                            addc_spec.x, addc_spec.y, addc_spec.z,
-                            de_b.x, de_b.y, de_b.z]
-                           + ([addx] if use_texp else []))
+                    xy = (rf(("tx", bounce)), rf(("ty", bounce)))
+                    wf.store_texel_planes(
+                        tadj_ref, bounce, static, sid,
+                        wf.image_hit_planes(
+                            static, sid,
+                            [xy if r.get("kind") == "image" else None
+                             for r in tex_recs], shp),
+                        addc_diff)
+                addc_diff = wf._route_checker_adjoint(
+                    static, sid, even, addc_diff, acc_ta, acc_tb)
+            put(PB * bounce, addc_diff.x, addc_diff.y, addc_diff.z,
+                addc_spec.x, addc_spec.y, addc_spec.z,
+                de_b.x, de_b.y, de_b.z, *([addx] if use_texp else []))
             beta = beta * t_eff
             r_tail = r_next
+            return pack()
 
-        dplanes.extend([acc_env.x, acc_env.y, acc_env.z])
-        for i in range(L):
-            dplanes.extend([acc_le[i].x, acc_le[i].y, acc_le[i].z])
-        dout_ref[:] = jnp.stack(dplanes, axis=0)
+        st = dict(beta=beta, r_tail=r_tail, acc_env=acc_env, acc_le=acc_le)
         if tex_recs:
-            def stack_acc(acc):
-                planes = []
-                for v in acc:
-                    planes.extend([v.x, v.y, v.z])
-                return jnp.stack(planes, axis=0)
-
-            pid = pl.program_id(0)
-            arr_ta = stack_acc(acc_ta)
-            arr_tb = stack_acc(acc_tb)
-            arr_ti = stack_acc(acc_ti) if img_recs else None
-
-            @pl.when(pid == 0)
-            def _():
-                dta_ref[:] = arr_ta
-                dtb_ref[:] = arr_tb
-                if img_recs:
-                    dti_ref[:] = arr_ti
-
-            @pl.when(pid != 0)
-            def _():
-                dta_ref[:] = dta_ref[:] + arr_ta
-                dtb_ref[:] = dtb_ref[:] + arr_tb
-                if img_recs:
-                    dti_ref[:] = dti_ref[:] + arr_ti
+            st.update(acc_ta=acc_ta, acc_tb=acc_tb)
+        st = jax.lax.fori_loop(0, B, step, st)
+        st = step(B, st)
+        acc_env, acc_le = st["acc_env"], st["acc_le"]
+        if tex_recs:
+            acc_ta, acc_tb = st["acc_ta"], st["acc_tb"]
+        put(PB * B + 3, acc_env.x, acc_env.y, acc_env.z)
+        for i in range(L):
+            put(PB * B + 6 + 3 * i, acc_le[i].x, acc_le[i].y, acc_le[i].z)
+        if tex_recs:
+            wf.store_partials(part_ref, _tex_partial_planes(acc_ta, acc_tb))
 
     return kernel
 
@@ -2041,14 +1528,48 @@ def _make_res_bwd_kernel(static, cfg: wf.KernelConfig, L: int,
 _TRACER_MEMO: dict = {}
 
 
+def _check_sampler(cfg):
+    if cfg.sampler not in ("random", "sobol", "hash"):
+        raise NotImplementedError(
+            "bigscene kernel: sampler must be 'random', 'sobol' or 'hash'")
+
+
+def _geo_inputs(tables, counts, use_cull):
+    geo_np = {k: tables[k][0] for k in tables}
+    rows_np = {k: tables[k][1] for k in tables}
+    bnds = [jnp.asarray(tables[k][2])
+            for k in ("tri", "rect", "disk", "sphere")
+            if counts[k]] if use_cull else []
+    return geo_np, rows_np, bnds
+
+
+_GEO_COLS = {"tri": PLANAR_GEO_COLS, "rect": PLANAR_GEO_COLS,
+             "disk": DISK_GEO_COLS, "sphere": SPHERE_GEO_COLS}
+
+
+def _tables(scene, geo_np, rows_np, diffuse=None, specular=None,
+            emission=None, exponent=None):
+    """The four (rows, geo + MAT_COLS) geometry/material tables (an
+    all-padding UNROLL-row block stands in for an empty class)."""
+    tabs = []
+    for k in ("tri", "rect", "disk", "sphere"):
+        g = jnp.asarray(geo_np[k])
+        m = _mat_cols(scene, rows_np[k], diffuse, specular, emission,
+                      exponent)
+        tabs.append(jnp.concatenate([g, m], axis=-1) if g.shape[0]
+                    else jnp.zeros((UNROLL, _GEO_COLS[k] + MAT_COLS),
+                                   jnp.float32))
+    return tabs
+
+
 def make_bigscene_tracer(scene, cfg: wf.KernelConfig | None = None,
-                         interpret: bool = False, _hash_rng: bool = False):
+                         interpret: bool = False):
     """Jitted lane tracer over the geometry tables.
 
     Returns fn(scene, o, d, seed) -> (N, 3) radiance. Geometry columns are
     host constants of the table arrays; the material columns are traced
     (gathered from scene.mat_* per call), so parameter updates reuse the
-    compile. One Mosaic compile per (geometry digest, cfg) — compile time
+    compile. One Triton compile per (geometry digest, cfg) — compile time
     is O(1) in the surface count (fori_loop sweeps).
 
     With cfg.sampler == "sobol" the signature gains two (N,) int32 lane
@@ -2056,105 +1577,51 @@ def make_bigscene_tracer(scene, cfg: wf.KernelConfig | None = None,
     fixed-seed / advancing-sample-index accumulation convention as the
     baked kernel (wavefront.make_pallas_tracer)."""
     cfg = cfg or wf.KernelConfig()
-    if cfg.sampler not in ("random", "sobol", "hash"):
-        raise NotImplementedError(
-            "bigscene kernel: sampler must be 'random', 'sobol' or 'hash'")
-    if interpret == "generic":
-        # callback-free interpreter (see wavefront.make_pallas_tracer):
-        # required for sharded train steps on CPU meshes
-        interpret = True
-    elif interpret is True:
-        interpret = pltpu.InterpretParams()
+    _check_sampler(cfg)
+    wf._check_rows(cfg)
     static, tables = extract_tables(scene)
-    memo_key = ("big", wf._static_digest(static), cfg, repr(interpret),
-                _hash_rng)
+    memo_key = ("big", wf._static_digest(static), cfg, bool(interpret))
     cached = _TRACER_MEMO.get(memo_key)
     if cached is not None:
         return cached
     counts = {k: tables[k][0].shape[0] for k in tables}
-    hw = interpret is False and not _hash_rng
-    kernel = _make_kernel(static, counts, cfg, hw_rng=hw)
+    kernel = _make_kernel(static, counts, cfg)
     n_lights = int(scene.n_lights)
     has_env = bool(scene.has_env)
-    geo_np = {k: tables[k][0] for k in tables}
-    rows_np = {k: tables[k][1] for k in tables}
-    bounds_np = {k: tables[k][2] for k in tables}
-    use_cull = cfg.cull != "off"
+    geo_np, rows_np, bnds = _geo_inputs(tables, counts, cfg.cull != "off")
     tex_recs = static.get("textures", [])
     has_img = any(r.get("kind") == "image" for r in tex_recs)
-    n_texels = static.get("n_texels", 0)
-    t_rows = scene.textures.n_textures if tex_recs else 0
-    geo_cols = {"tri": PLANAR_GEO_COLS, "rect": PLANAR_GEO_COLS,
-                "disk": DISK_GEO_COLS, "sphere": SPHERE_GEO_COLS}
-    total_bytes = sum(
-        g.shape[0] * (g.shape[1] + MAT_COLS) * 4 for g in geo_np.values())
-    table_space = pltpu.SMEM if total_bytes <= SMEM_TABLE_LIMIT \
-        else pltpu.VMEM
     use_sobol = cfg.sampler in ("sobol", "hash")  # kernel takes si/pix
 
     @jax.jit
     def trace(scene, o, d, seed, si=None, pix=None):
         n = o.shape[0]
-        tile = cfg.rows * LANE
-        npad = ((n + tile - 1) // tile) * tile
-        grid = npad // tile
-
-        def planes(v):
-            pad = jnp.zeros((npad - n,), jnp.float32)
-            return [jnp.concatenate([v[:, i], pad])
-                    .reshape(grid * cfg.rows, LANE) for i in range(3)]
-
-        def iplane(v):
-            pad = jnp.zeros((npad - n,), jnp.int32)
-            return jnp.concatenate([v.astype(jnp.int32), pad]) \
-                .reshape(grid * cfg.rows, LANE)
-
-        extra = [iplane(si), iplane(pix)] if use_sobol else []
-        ox, oy, oz = planes(o)
-        dx, dy, dz = planes(d)
-        tabs = []
-        for k in ("tri", "rect", "disk", "sphere"):
-            g = jnp.asarray(geo_np[k])
-            m = _mat_cols(scene, rows_np[k])
-            tabs.append(jnp.concatenate([g, m], axis=-1) if g.shape[0]
-                        else jnp.zeros((UNROLL, geo_cols[k] + MAT_COLS),
-                                       jnp.float32))
-        bnds = [jnp.asarray(bounds_np[k])
-                for k in ("tri", "rect", "disk", "sphere")
-                if counts[k]] if use_cull else []
+        npad, grid = wf.lane_grid(n, cfg.rows)
+        lanes = [*wf.lane_planes(o, npad), *wf.lane_planes(d, npad)]
+        if use_sobol:
+            lanes += [*wf.lane_planes(si.astype(jnp.int32), npad),
+                      *wf.lane_planes(pix.astype(jnp.int32), npad)]
         tex_in = ([scene.textures.color_a, scene.textures.color_b]
                   if tex_recs else [])
         if has_img:
             tex_in.append(scene.textures.image.reshape(-1, 3))
-
-        blk = pl.BlockSpec((cfg.rows, LANE), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-        smem = functools.partial(pl.BlockSpec, index_map=lambda i: (0, 0),
-                                 memory_space=pltpu.SMEM)
-        tab_spec = [pl.BlockSpec(memory_space=table_space) for _ in tabs]
-        tex_spec = ([smem((t_rows, 3)), smem((t_rows, 3))]
-                    if tex_recs else []) \
-            + ([smem((n_texels, 3))] if has_img else [])
-        bnd_spec = [pl.BlockSpec(memory_space=pltpu.SMEM) for _ in bnds]
-        seed_arr = jnp.asarray(seed, jnp.int32).reshape(1)
         light_emit = (scene.lights.emit if n_lights
                       else jnp.zeros((1, 3), jnp.float32))
         env = (scene.env_radiance_ if has_env
                else jnp.zeros(3, jnp.float32)).reshape(1, 3)
-        out = pl.pallas_call(
-            kernel, grid=(grid,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] + tab_spec
-            + tex_spec + bnd_spec
-            + [smem((max(n_lights, 1), 3)), smem((1, 3)),
-               blk, blk, blk, blk, blk, blk] + [blk] * len(extra),
-            out_specs=[blk, blk, blk],
-            out_shape=[jax.ShapeDtypeStruct((grid * cfg.rows, LANE),
-                                            jnp.float32) for _ in range(3)],
-            interpret=interpret,
-        )(seed_arr, *tabs, *tex_in, *bnds, light_emit, env,
-          ox, oy, oz, dx, dy, dz, *extra)
-        lx, ly, lz = [v.reshape(-1)[:n] for v in out]
-        return jnp.stack([lx, ly, lz], axis=-1)
+        whole_in = [jnp.asarray(seed, jnp.int32).reshape(1),
+                    *_tables(scene, geo_np, rows_np), *tex_in, *bnds,
+                    light_emit, env]
+        blk = pl.BlockSpec((cfg.rows, LANE), lambda i: (i, 0))
+        out = wf.pallas_call(
+            kernel, interpret=interpret, name="kytpu_table_fwd",
+            grid=(grid,),
+            in_specs=[pl.BlockSpec()] * len(whole_in) + [blk] * len(lanes),
+            out_specs=[blk] * 3,
+            out_shape=[jax.ShapeDtypeStruct((npad // LANE, LANE),
+                                            jnp.float32)] * 3,
+        )(*whole_in, *lanes)
+        return jnp.stack([v.reshape(-1)[:n] for v in out], axis=-1)
 
     _TRACER_MEMO[memo_key] = trace
     return trace
@@ -2162,15 +1629,13 @@ def make_bigscene_tracer(scene, cfg: wf.KernelConfig | None = None,
 
 def make_bigscene_diff_tracer(scene, cfg: wf.KernelConfig | None = None,
                               interpret: bool = False,
-                              _hash_rng: bool = False,
                               backward: str = "residual"):
     """Differentiable table-kernel tracer.
 
     backward="residual" (default): the forward caches the per-bounce
     transport coefficients (_bigres_layout) and the backward is pure
-    cache algebra — no geometry sweeps at all (the 2x the baked kernel
-    measured for its own residual mode). backward="replay" re-traces the
-    transport on the same RNG stream (no cache memory traffic).
+    cache algebra — no geometry sweeps at all. backward="replay" re-traces
+    the transport on the same RNG stream (no cache memory traffic).
 
     Returns fn(diffuse, specular, emission, env, o, d, seed) -> (N, 3)
     radiance with a custom VJP producing (d_diffuse, d_specular,
@@ -2178,9 +1643,7 @@ def make_bigscene_diff_tracer(scene, cfg: wf.KernelConfig | None = None,
     semantics to wavefront.make_pallas_diff_tracer(backward="replay"),
     but scaled to thousands of surfaces: the backward kernel writes
     per-bounce per-lane adjoint contributions tagged with the hit row and
-    the host graph segment-sums them into the (M, 3) tables (one one-hot
-    matmul per backward — per-row VMEM accumulators would need
-    3*M*rows*LANE*4 bytes and die past ~100 rows). NEE light-emission
+    XLA segment-sums them into the (M, 3) tables. NEE light-emission
     adjoints are routed to each light's emitting surface row exactly as
     diff.params.set_params ties them.
 
@@ -2189,23 +1652,17 @@ def make_bigscene_diff_tracer(scene, cfg: wf.KernelConfig | None = None,
     nondifferentiable and must be identical between forward and backward
     (the replay backward re-draws the same Owen-Sobol stream from them)."""
     cfg = cfg or wf.KernelConfig()
-    if cfg.sampler not in ("random", "sobol", "hash"):
-        raise NotImplementedError(
-            "bigscene kernel: sampler must be 'random', 'sobol' or 'hash'")
-    if interpret == "generic":
-        interpret = True   # callback-free; see wavefront.make_pallas_tracer
-    elif interpret is True:
-        interpret = pltpu.InterpretParams()
+    _check_sampler(cfg)
+    wf._check_rows(cfg)
     static, tables = extract_tables(scene)
     if backward not in ("replay", "residual"):
         raise ValueError(f"backward must be replay|residual: {backward!r}")
-    memo_key = ("bigdiff", wf._static_digest(static), cfg, repr(interpret),
-                _hash_rng, backward)
+    memo_key = ("bigdiff", wf._static_digest(static), cfg, bool(interpret),
+                backward)
     cached = _TRACER_MEMO.get(memo_key)
     if cached is not None:
         return cached
     counts = {k: tables[k][0].shape[0] for k in tables}
-    hw = interpret is False and not _hash_rng
     residual = backward == "residual"
     L = len(static["lights"])
     res_env = any(lt["kind"] == klights.ENV for lt in static["lights"])
@@ -2213,38 +1670,33 @@ def make_bigscene_diff_tracer(scene, cfg: wf.KernelConfig | None = None,
     has_tex = bool(tex_recs)
     has_img = any(r.get("kind") == "image" for r in tex_recs)
     t_rows = static.get("n_textures", 0) if has_tex else 0
-    n_texels = static.get("n_texels", 0) if has_img else 0
     img_shape = tuple(scene.textures.image.shape) if has_img else (0, 3)
-    fwd_kernel = _make_kernel(static, counts, cfg, hw_rng=hw,
-                              residual=residual)
+    fwd_kernel = _make_kernel(static, counts, cfg, residual=residual)
     if residual:
         bwd_kernel = _make_res_bwd_kernel(static, cfg, L, res_env)
         res_ix, res_n = _bigres_layout(cfg, L, res_env, has_img)
     else:
-        bwd_kernel = _make_kernel(static, counts, cfg, hw_rng=hw,
-                                  grad=True)
+        bwd_kernel = _make_kernel(static, counts, cfg, grad=True)
     n_lights = int(scene.n_lights)
     m_rows = int(scene.mat_kind.shape[0])
-    geo_np = {k: tables[k][0] for k in tables}
-    rows_np = {k: tables[k][1] for k in tables}
-    bounds_np = {k: tables[k][2] for k in tables}
-    use_cull = cfg.cull != "off"
-    geo_cols = {"tri": PLANAR_GEO_COLS, "rect": PLANAR_GEO_COLS,
-                "disk": DISK_GEO_COLS, "sphere": SPHERE_GEO_COLS}
-    total_bytes = sum(
-        g.shape[0] * (g.shape[1] + MAT_COLS) * 4 for g in geo_np.values())
-    table_space = pltpu.SMEM if total_bytes <= SMEM_TABLE_LIMIT \
-        else pltpu.VMEM
+    geo_np, rows_np, bnds = _geo_inputs(tables, counts, cfg.cull != "off")
     B = cfg.max_depth            # bounces with extension terms
     use_texp = cfg.trainable_exponent
     PB = 10 if use_texp else 9   # per-bounce planes (dd ds de [dx])
     P = PB * B + 6 + 3 * L       # dout planes (see _make_kernel grad doc)
+    n_part = wf.pow2_at_least(6 * t_rows)
     light_rows = [int(v) for v in np.asarray(scene.lights.surface_ids)] \
         if n_lights else []
     light_kinds = [int(v) for v in np.asarray(scene.lights.kinds)] \
         if n_lights else []
     lights_emit_const = (np.asarray(scene.lights.emit) if n_lights
                          else np.zeros((1, 3), np.float32))
+    use_sobol = cfg.sampler in ("sobol", "hash")  # kernel takes si/pix
+    blk = pl.BlockSpec((cfg.rows, LANE), lambda i: (i, 0))
+    whole = pl.BlockSpec()
+
+    def stk(nplanes):
+        return pl.BlockSpec((nplanes, cfg.rows, LANE), lambda i: (0, i, 0))
 
     def _light_emit_of(emission, env):
         if not n_lights:
@@ -2258,78 +1710,24 @@ def make_bigscene_diff_tracer(scene, cfg: wf.KernelConfig | None = None,
                 emit = emit.at[i].set(env)
         return emit
 
-    def _tabs(diffuse, specular, emission, exponent):
-        tabs = []
-        for k in ("tri", "rect", "disk", "sphere"):
-            g = jnp.asarray(geo_np[k])
-            m = _mat_cols(scene, rows_np[k], diffuse, specular, emission,
-                          exponent)
-            tabs.append(jnp.concatenate([g, m], axis=-1) if g.shape[0]
-                        else jnp.zeros((UNROLL, geo_cols[k] + MAT_COLS),
-                                       jnp.float32))
-        return tabs
-
-    bnds = [jnp.asarray(bounds_np[k])
-            for k in ("tri", "rect", "disk", "sphere")
-            if counts[k]] if use_cull else []
-    bnd_spec = [pl.BlockSpec(memory_space=pltpu.SMEM) for _ in bnds]
-
-    def _grid_of(n):
-        tile = cfg.rows * LANE
-        npad = ((n + tile - 1) // tile) * tile
-        return npad, npad // tile
-
-    use_sobol = cfg.sampler in ("sobol", "hash")  # kernel takes si/pix
-
-    def _planes(v, n, npad, rows):
-        pad = jnp.zeros((npad - n,), jnp.float32)
-        return [jnp.concatenate([v[:, i], pad]).reshape(rows, LANE)
-                for i in range(3)]
-
-    def _iplanes(si, pix, n, npad, rows):
-        if not use_sobol:
-            return []
-        pad = jnp.zeros((npad - n,), jnp.int32)
-        return [jnp.concatenate([v.astype(jnp.int32), pad])
-                .reshape(rows, LANE) for v in (si, pix)]
-
-    def _specs(grid):
-        blk = pl.BlockSpec((cfg.rows, LANE), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM)
-        smem = functools.partial(pl.BlockSpec, index_map=lambda i: (0, 0),
-                                 memory_space=pltpu.SMEM)
-        tab_spec = [pl.BlockSpec(memory_space=table_space)
-                    for _ in range(4)]
-        return blk, smem, tab_spec
-
-    def _tex_args(texa, texb, timg):
-        """(pallas inputs, in_specs) for the texture tables — placed right
-        after the geometry tables (the kernel pops them first)."""
-        if not has_tex:
-            return [], []
-        smem_t = functools.partial(pl.BlockSpec,
-                                   index_map=lambda i: (0, 0),
-                                   memory_space=pltpu.SMEM)
-        inputs = [texa, texb]
-        specs = [smem_t((t_rows, 3)), smem_t((t_rows, 3))]
+    def _whole_in(diffuse, specular, emission, exponent, texa, texb, timg,
+                  env, seed):
+        """Whole-array inputs of the forward / replay kernels."""
+        tex_in = [texa, texb] if has_tex else []
         if has_img:
-            inputs.append(timg.reshape(-1, 3))
-            specs.append(smem_t((n_texels, 3)))
-        return inputs, specs
+            tex_in.append(timg.reshape(-1, 3))
+        return [jnp.asarray(seed, jnp.int32).reshape(1),
+                *_tables(scene, geo_np, rows_np, diffuse, specular,
+                         emission, exponent),
+                *tex_in, *bnds, _light_emit_of(emission, env),
+                env.reshape(1, 3)]
 
-    def _acc_blk(nplanes):
-        return pl.BlockSpec((nplanes, cfg.rows, LANE),
-                            lambda i: (0, 0, 0), memory_space=pltpu.VMEM)
-
-    def _acc_shape(nplanes):
-        return jax.ShapeDtypeStruct((nplanes, cfg.rows, LANE), jnp.float32)
-
-    acc_extra_specs = ([_acc_blk(3 * t_rows), _acc_blk(3 * t_rows)]
-                       if has_tex else []) \
-        + ([_acc_blk(3 * n_texels)] if has_img else [])
-    acc_extra_shapes = ([_acc_shape(3 * t_rows), _acc_shape(3 * t_rows)]
-                        if has_tex else []) \
-        + ([_acc_shape(3 * n_texels)] if has_img else [])
+    def _lanes(o, d, si, pix, npad):
+        lanes = [*wf.lane_planes(o, npad), *wf.lane_planes(d, npad)]
+        if use_sobol:
+            lanes += [*wf.lane_planes(si.astype(jnp.int32), npad),
+                      *wf.lane_planes(pix.astype(jnp.int32), npad)]
+        return lanes
 
     @jax.custom_vjp
     def trace(diffuse, specular, emission, exponent, texa, texb, timg,
@@ -2337,43 +1735,31 @@ def make_bigscene_diff_tracer(scene, cfg: wf.KernelConfig | None = None,
         return _fwd_impl(diffuse, specular, emission, exponent, texa,
                          texb, timg, env, o, d, seed, si, pix)
 
-    def _stk_spec(nplanes):
-        return pl.BlockSpec((nplanes, cfg.rows, LANE),
-                            lambda i: (0, i, 0), memory_space=pltpu.VMEM)
-
     def _fwd_impl(diffuse, specular, emission, exponent, texa, texb,
                   timg, env, o, d, seed, si, pix, want_res=False):
         n = o.shape[0]
-        npad, grid = _grid_of(n)
-        rows = grid * cfg.rows
-        blk, smem, tab_spec = _specs(grid)
-        ox, oy, oz = _planes(o, n, npad, rows)
-        dx, dy, dz = _planes(d, n, npad, rows)
-        extra = _iplanes(si, pix, n, npad, rows)
-        tex_in, tex_spec = _tex_args(texa, texb, timg)
+        npad, grid = wf.lane_grid(n, cfg.rows)
+        rows = npad // LANE
+        whole_in = _whole_in(diffuse, specular, emission, exponent, texa,
+                             texb, timg, env, seed)
+        lanes = _lanes(o, d, si, pix, npad)
         res_specs, res_shapes = [], []
         if residual:
-            res_specs = [_stk_spec(res_n), _stk_spec(cfg.max_depth + 1)]
+            res_specs = [stk(res_n), stk(B + 1)]
             res_shapes = [
                 jax.ShapeDtypeStruct((res_n, rows, LANE), jnp.float32),
-                jax.ShapeDtypeStruct((cfg.max_depth + 1, rows, LANE),
-                                     jnp.int32)]
-        out = pl.pallas_call(
-            fwd_kernel, grid=(grid,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] + tab_spec
-            + tex_spec + bnd_spec
-            + [smem((max(n_lights, 1), 3)), smem((1, 3)),
-               blk, blk, blk, blk, blk, blk] + [blk] * len(extra),
-            out_specs=[blk, blk, blk] + res_specs,
-            out_shape=[jax.ShapeDtypeStruct((rows, LANE), jnp.float32)
-                       for _ in range(3)] + res_shapes,
-            interpret=interpret,
-        )(jnp.asarray(seed, jnp.int32).reshape(1),
-          *_tabs(diffuse, specular, emission, exponent), *tex_in, *bnds,
-          _light_emit_of(emission, env), env.reshape(1, 3),
-          ox, oy, oz, dx, dy, dz, *extra)
-        lx, ly, lz = [v.reshape(-1)[:n] for v in out[:3]]
-        big_l = jnp.stack([lx, ly, lz], axis=-1)
+                jax.ShapeDtypeStruct((B + 1, rows, LANE), jnp.int32)]
+        out = wf.pallas_call(
+            fwd_kernel, interpret=interpret,
+            name="kytpu_table_fwd_residual" if residual
+            else "kytpu_table_fwd",
+            grid=(grid,),
+            in_specs=[whole] * len(whole_in) + [blk] * len(lanes),
+            out_specs=[blk] * 3 + res_specs,
+            out_shape=[jax.ShapeDtypeStruct((rows, LANE), jnp.float32)] * 3
+            + res_shapes,
+        )(*whole_in, *lanes)
+        big_l = jnp.stack([v.reshape(-1)[:n] for v in out[:3]], axis=-1)
         if want_res:
             return big_l, out[3], out[4]
         return big_l
@@ -2396,77 +1782,58 @@ def make_bigscene_diff_tracer(scene, cfg: wf.KernelConfig | None = None,
         (diffuse, specular, emission, exponent, texa, texb, timg, env, o,
          d, seed, si, pix, big_l, resf, resi) = res
         n = o.shape[0]
-        npad, grid = _grid_of(n)
-        rows = grid * cfg.rows
-        blk, smem, tab_spec = _specs(grid)
-        gx, gy, gz = _planes(g, n, npad, rows)
-        flx, fly, flz = _planes(big_l, n, npad, rows)
-        dta = dtb = dti = None
-
-        def _unpack_acc(outs):
-            nonlocal dta, dtb, dti
-            if has_tex:
-                dta = outs.pop(0).sum(axis=(1, 2)).reshape(t_rows, 3)
-                dtb = outs.pop(0).sum(axis=(1, 2)).reshape(t_rows, 3)
-            if has_img:
-                dti = outs.pop(0).sum(axis=(1, 2)).reshape(img_shape)
-
-        def stk(nplanes):
-            return pl.BlockSpec((nplanes, cfg.rows, LANE),
-                                lambda i: (0, i, 0),
-                                memory_space=pltpu.VMEM)
-
+        npad, grid = wf.lane_grid(n, cfg.rows)
+        rows = npad // LANE
+        gl = [*wf.lane_planes(g, npad), *wf.lane_planes(big_l, npad)]
+        out_specs = [stk(P)]
+        out_shape = [jax.ShapeDtypeStruct((P, rows, LANE), jnp.float32)]
+        if not residual:
+            out_specs.append(stk(B + 1))
+            out_shape.append(jax.ShapeDtypeStruct((B + 1, rows, LANE),
+                                                  jnp.int32))
+        if has_tex:
+            out_specs.append(pl.BlockSpec((1, n_part), lambda i: (i, 0)))
+            out_shape.append(jax.ShapeDtypeStruct((grid, n_part),
+                                                  jnp.float32))
+        if has_img:
+            n_tp = wf.TEX_PLANES * B
+            out_specs.append(stk(n_tp))
+            out_shape.append(jax.ShapeDtypeStruct((n_tp, rows, LANE),
+                                                  jnp.float32))
         if residual:
             # cache-algebra backward: no geometry, no RNG, no sweeps
-            outs = pl.pallas_call(
-                bwd_kernel, grid=(grid,),
-                in_specs=[smem((max(n_lights, 1), 3)), smem((1, 3)),
-                          blk, blk, blk, blk, blk, blk,
-                          stk(res_n), stk(B + 1)],
-                out_specs=[stk(P)] + acc_extra_specs,
-                out_shape=[jax.ShapeDtypeStruct((P, rows, LANE),
-                                                jnp.float32)]
-                + acc_extra_shapes,
-                interpret=interpret,
-            )(_light_emit_of(emission, env), env.reshape(1, 3),
-              gx, gy, gz, flx, fly, flz, resf, resi)
-            outs = list(outs) if isinstance(outs, (list, tuple)) \
-                else [outs]
+            outs = wf.pallas_call(
+                bwd_kernel, interpret=interpret,
+                name="kytpu_table_bwd_residual", grid=(grid,),
+                in_specs=[whole, whole] + [blk] * len(gl)
+                + [stk(res_n), stk(B + 1)],
+                out_specs=out_specs, out_shape=out_shape,
+            )(_light_emit_of(emission, env), env.reshape(1, 3), *gl,
+              resf, resi)
+            outs = list(outs)
             dout = outs.pop(0)
-            _unpack_acc(outs)
-            dout = dout.reshape(P, -1)[:, :n]
             sid1 = (resi.reshape(B + 1, -1)[:, :n]
                     & np.int32((1 << 20) - 1))
         else:
-            ox, oy, oz = _planes(o, n, npad, rows)
-            dx, dy, dz = _planes(d, n, npad, rows)
-            extra = _iplanes(si, pix, n, npad, rows)
-            tex_in, tex_spec = _tex_args(texa, texb, timg)
-            outs = pl.pallas_call(
-                bwd_kernel, grid=(grid,),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] + tab_spec
-                + tex_spec + bnd_spec
-                + [smem((max(n_lights, 1), 3)), smem((1, 3)),
-                   blk, blk, blk, blk, blk, blk] + [blk] * len(extra)
-                + [blk, blk, blk, blk, blk, blk],
-                out_specs=[stk(P), stk(B + 1)] + acc_extra_specs,
-                out_shape=[jax.ShapeDtypeStruct((P, rows, LANE),
-                                                jnp.float32),
-                           jax.ShapeDtypeStruct((B + 1, rows, LANE),
-                                                jnp.int32)]
-                + acc_extra_shapes,
-                interpret=interpret,
-            )(jnp.asarray(seed, jnp.int32).reshape(1),
-              *_tabs(diffuse, specular, emission, exponent), *tex_in,
-              *bnds,
-              _light_emit_of(emission, env), env.reshape(1, 3),
-              ox, oy, oz, dx, dy, dz, *extra, gx, gy, gz, flx, fly, flz)
-            outs = list(outs)
+            whole_in = _whole_in(diffuse, specular, emission, exponent,
+                                 texa, texb, timg, env, seed)
+            lanes = _lanes(o, d, si, pix, npad) + gl
+            outs = list(wf.pallas_call(
+                bwd_kernel, interpret=interpret,
+                name="kytpu_table_bwd_replay", grid=(grid,),
+                in_specs=[whole] * len(whole_in) + [blk] * len(lanes),
+                out_specs=out_specs, out_shape=out_shape,
+            )(*whole_in, *lanes))
             dout = outs.pop(0)
-            rows_out = outs.pop(0)
-            _unpack_acc(outs)
-            dout = dout.reshape(P, -1)[:, :n]           # (P, n)
-            sid1 = rows_out.reshape(B + 1, -1)[:, :n]   # (B+1, n)
+            sid1 = outs.pop(0).reshape(B + 1, -1)[:, :n]   # (B+1, n)
+        dout = dout.reshape(P, -1)[:, :n]                   # (P, n)
+        if has_tex:
+            dta, dtb = _unpack_tex_partials(outs.pop(0), t_rows)
+        else:
+            dta = jnp.zeros((t_rows, 3), jnp.float32)
+            dtb = jnp.zeros((t_rows, 3), jnp.float32)
+        dti = (wf.texel_adjoint(outs.pop(0), n, img_shape) if has_img
+               else jnp.zeros(img_shape, jnp.float32))
 
         # per-bounce PB-column contribution rows -> segment-sum by sid+1
         data = [dout[PB * b:PB * b + PB].T for b in range(B)]
@@ -2489,11 +1856,6 @@ def make_bigscene_diff_tracer(scene, cfg: wf.KernelConfig | None = None,
             elif i < len(light_kinds) and light_kinds[i] == klights.ENV:
                 denv = denv + dle
         dxp = dxp if use_texp else jnp.zeros_like(exponent)
-        if dta is None:
-            dta = jnp.zeros((t_rows, 3), jnp.float32)
-            dtb = jnp.zeros((t_rows, 3), jnp.float32)
-        if dti is None:
-            dti = jnp.zeros(img_shape, jnp.float32)
         return (dd, ds, de, dxp, dta, dtb, dti, denv,
                 None, None, None, None, None)
 

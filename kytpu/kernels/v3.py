@@ -1,7 +1,7 @@
 """Component-plane ("structure of planes") 3-vector algebra.
 
-Inside a Pallas TPU kernel a (N, 3) vector array would waste 125/128 of
-every vector register (the minor dimension must tile to 128). Instead each
+Inside a Pallas kernel a (N, 3) vector array would be a non-power-of-two
+block and would interleave components across threads. Instead each
 3-vector field is three separate (rows, 128) planes, and this module gives
 them vector-algebra semantics so kernel code reads like the jnp reference
 implementation (kytpu/core/math.py) it mirrors.
@@ -32,9 +32,9 @@ def _cmul(a, b):
 
     Scene geometry is baked into the kernels as host constants, and
     axis-aligned boxes (cornell, the veach floor/wall planes) make most
-    normal / dual-basis components exactly 0 or +-1. Mosaic does NOT
+    normal / dual-basis components exactly 0 or +-1. The kernel compilers do NOT
     fold x*0 -> 0 (invalid under IEEE without fast-math), so without
-    this every such dead multiply executes on the VPU. Folding here is
+    this every such dead multiply executes. Folding here is
     exact for finite operands (the skipped terms are identically +-0)."""
     ca, cb = _const_of(a), _const_of(b)
     c, v = (ca, b) if ca is not None else (cb, a)
@@ -123,6 +123,11 @@ def v3_full(like, x, y, z) -> V3:
     return V3(ones * x, ones * y, ones * z)
 
 
+# V3 crosses lax.fori_loop / lax.cond boundaries inside the kernels
+jax.tree_util.register_dataclass(V3, data_fields=["x", "y", "z"],
+                                 meta_fields=[])
+
+
 def v3_zeros(like) -> V3:
     z = jnp.zeros_like(like)
     return V3(z, z, z)
@@ -134,7 +139,7 @@ def make_frame(n: V3) -> tuple[V3, V3, V3]:
 
     The helper cross product is specialized to the one-hot helper axis
     ((0,1,0) when |n.x| > 0.99 else (1,0,0)) and both normalizations use
-    rsqrt — per-frame cost drops by 2 VPU divides and ~6 mul/sub versus
+    rsqrt — per-frame cost drops by 2 divides and ~6 mul/sub versus
     the generic cross form, at <=1ulp value drift (frames are built 7x
     per bounce in the veach NEE path: hit + 5 lights + phong sample)."""
     use_y = jnp.abs(n.x) > 0.99

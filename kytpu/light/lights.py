@@ -1,6 +1,6 @@
 """Lights: point / directional / area (rect, sphere) / constant environment.
 
-TPU-first inversion of the reference's light hierarchy (ky.cpp:2690-3064):
+Data-parallel inversion of the reference's light hierarchy (ky.cpp:2690-3064):
 lights live in one SoA table whose *kinds* are static metadata, so the
 per-light NEE loop (at most a handful of lights) unrolls at trace time into
 kind-specialized vector code with zero dynamic dispatch.
@@ -118,7 +118,9 @@ def _sphere_sample(center, radius, radiance, p, n_shade, u2) -> LightSample:
     n_cone = km.spherical_to_direction_in_frame(
         sin_alpha, cos_alpha, phi, -s, -t, -nf)
     pos_cone = c + radius * n_cone
-    pdf_cone = km.safe_div(1.0, km.TWO_PI * (1.0 - cos_max))
+    # 1 - cos_max without cancellation (sin2 / (1 + cos)): the naive
+    # difference keeps ~2 significant digits for small, distant lights
+    pdf_cone = km.safe_div(1.0, km.TWO_PI * sin2_max / (1.0 + cos_max))
     pdf_cone = jnp.where(jnp.isfinite(pdf_cone), pdf_cone, 0.0)
 
     # --- inside: uniform area sample (ky.cpp:1422-1443) ---
@@ -254,7 +256,7 @@ def pdf_li(lights: Lights, i: int, p, n_shade, wi):
         inside = d2c <= r * r
         sin2_max = km.safe_div(r * r, d2c, 1.0)
         cos_max = km.safe_sqrt(1.0 - sin2_max)
-        pdf_cone = km.safe_div(1.0, km.TWO_PI * (1.0 - cos_max))
+        pdf_cone = km.safe_div(1.0, km.TWO_PI * sin2_max / (1.0 + cos_max))
         pdf_cone = jnp.where(jnp.isfinite(pdf_cone), pdf_cone, 0.0)
         pdf_in = _sphere_reintersect_pdf(c, r, p, n_shade, wi)
         return jnp.where(inside, pdf_in, pdf_cone)

@@ -1,6 +1,6 @@
 """Next-event estimation: six selectable direct-lighting strategies with MIS.
 
-TPU-first inversion of the reference's estimator suite (ky.cpp:3798-4090).
+Data-parallel inversion of the reference's estimator suite (ky.cpp:3798-4090).
 Each estimator is vectorized over the whole ray wavefront; the per-light loop
 (<= 5 lights in every reference scene) unrolls statically, so each light's
 shadow/MIS rays compile into specialized intersection sweeps.
@@ -163,8 +163,7 @@ def sample_all_lights(scene, hit, params, keys, active, strategy: str,
         # estimator — the variance is cut to one sample but the COST stays
         # O(L). Only the Pallas kernels' per-tile scalar pick realizes the
         # O(1) cost saving. (A per-lane parameter gather would need the
-        # light types homogenized; measured TPU gathers are ~27 ms/1M lanes,
-        # so it would lose anyway — BASELINE.md round-4 VPU table.)
+        # light types homogenized first.)
         k_sel, k_draw = krng.split_channels(keys, 2)
         u_sel = krng.uniform(k_sel, sampler=sampler, index=index)
         idx = jnp.minimum((u_sel * n_lights).astype(jnp.int32), n_lights - 1)

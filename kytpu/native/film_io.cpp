@@ -1,6 +1,6 @@
 // Native film encoders: 24-bit BMP and Radiance HDR (flat RGBE).
 //
-// TPU-native equivalent of the reference's host-side image writers
+// Host-side equivalent of the reference's host-side image writers
 // (store_bmp_impl ky.cpp:1661-1737, store_hdr_impl ky.cpp:1739-1782),
 // re-implemented from the file-format specs. Byte-identical to the numpy
 // fallbacks in kytpu/film/io.py: gamma encode pow(x, 1/2.2)*255+0.5 in

@@ -6,7 +6,7 @@ kytpu's dense SoA sweep (scene/shapes.py) is the vectorized equivalent and
 wins below a few hundred surfaces, but it is O(N) per ray; this module is the
 beyond-parity scaling story for thousand-surface scenes.
 
-TPU-first design — a uniform grid, not a BVH, because the traversal must be
+Batched design — a uniform grid, not a BVH, because the traversal must be
 a *batched* fixed-structure loop, not per-ray pointer chasing:
 
   - the grid is baked on the host into two dense (cells, Imax) int32 candidate
@@ -21,16 +21,13 @@ a *batched* fixed-structure loop, not per-ray pointer chasing:
     boundary (the standard grid-correctness criterion), when it leaves the
     grid, or when t exceeds tmax; the loop ends when every lane has retired.
 
-Cost model and the MEASURED verdict (v5e, 256k random rays, depth-0
-closest-hit): brute force tests all N surfaces per ray with dense VPU math;
-the grid tests (visited cells) x (padded cell occupancy) with *gathered*
-parameters. On this hardware a gathered candidate test costs ~50x a dense
-test, so the sweep wins at every measured scale — 1026 surfaces: sweep
-2.50 Mrays/s vs grid 0.18; 4098 surfaces: sweep 1.03 vs grid 0.12 (best
-resolution each). The grid is therefore an OPT-IN (`accel="grid"`),
-fully tested against the sweep oracle, kept for scales/hardware where
-per-ray asymptotics eventually beat dense throughput; `accel="auto"`
-deliberately resolves to the sweep.
+Cost model: brute force tests all N surfaces per ray with dense math; the
+grid tests (visited cells) x (padded cell occupancy) with *gathered*
+parameters, so it wins only where a gathered candidate test is cheap
+relative to a dense one. Where gathers were expensive the sweep won at
+every scale tried, so the grid is an OPT-IN (`accel="grid"`), fully tested
+against the sweep oracle; `accel="auto"` resolves to the sweep until a
+measurement on the GPU shows a scale where the grid wins.
 """
 
 from __future__ import annotations

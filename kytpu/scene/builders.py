@@ -118,10 +118,8 @@ class _SceneAssembler:
               accel: str | None = "auto") -> kscene.Scene:
         """accel: "grid" opts into the uniform-grid DDA accelerator
         (scene/accel.py), None disables it. "auto" (default) currently
-        means None at every scale: measured on v5e, the dense chunked
-        sweep beats the gather-based grid up to at least 4k surfaces
-        (gathers cost ~50x a dense VPU test — see docs/ROADMAP.md), so
-        auto keeps the sweep until a scale where the grid wins exists."""
+        means None at every scale: the dense chunked sweep stays until a
+        measurement shows a scale where the gather-based grid wins."""
         geometry, surf_ids = self.geo.build()
         n_surf = geometry.n_surfaces
         order = np.argsort(surf_ids)  # assembler order -> row order
@@ -498,11 +496,11 @@ def random_spheres(n: int = 100, width: int = 256, height: int = 256,
 
     Beyond parity (the reference has no accelerator and tops out at ~16
     surfaces per scene, ky.cpp:3097-3115 + 3240-3533). kytpu's closest-hit
-    is a vectorized O(N) SoA sweep, which on TPU stays VPU-friendly to
+    is a vectorized O(N) SoA sweep, which stays dense and branch-free to
     hundreds of surfaces; this factory provides arbitrary-N scenes for
-    measuring that scaling (benchmarks/run.py --scale). Use the jnp engines
-    for large N — the Pallas megakernel bakes geometry as unrolled
-    constants, so its compile time grows with N.
+    measuring that scaling (benchmarks/run.py --scale). Past 64 surfaces
+    engine="pallas" routes to the table-driven kernel (O(1) compile in N);
+    the baked megakernel's compile time grows with N.
 
     Layout: ray-marchable ground rectangle, `n` pseudo-random spheres
     (70% matte, 15% mirror, 10% glass, 5% glossy plastic), one sphere

@@ -1,6 +1,6 @@
 """Scene: geometry + per-surface material/light bindings + lights.
 
-TPU-first inversion of the reference's surface/scene layer
+Data-parallel inversion of the reference's surface/scene layer
 (ky.cpp:3068-3237): `surface_t` bound a BSDF and emission onto the
 intersection at hit time via heap allocation (ky.cpp:3077-3088); here the
 binding is a gather from dense per-surface tables indexed by the winning

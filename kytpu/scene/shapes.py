@@ -1,12 +1,12 @@
 """Structure-of-arrays geometry and batched ray intersection.
 
-TPU-first inversion of the reference's shape layer (ky.cpp:991-1521): instead
+Data-parallel inversion of the reference's shape layer (ky.cpp:991-1521): instead
 of virtual `shape_t::intersect` with a mutable shrinking ray tmax, all shapes
 live in two dense SoA tables (planar: triangle/rectangle/disk, and spheres),
 every ray tests every row in one fused elementwise sweep, and the closest hit
 is an argmin over the surface axis. This trades the CPU's early-out for
 perfect vectorization — at the reference's scene sizes (<= 16 surfaces) the
-sweep is a handful of VPU ops per ray.
+sweep is a handful of vector ops per ray.
 
 Behavioral parity notes (constants required for pixel parity):
   - minimum hit distance epsilon = 1e-3          (ky.cpp:1093)

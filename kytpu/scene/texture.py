@@ -2,7 +2,7 @@
 
 Beyond parity: the reference declares an empty `texture` region and never
 fills it (ky.cpp:2559-2563), so this subsystem has no C++ counterpart to
-mirror — it is designed TPU-first from scratch:
+mirror — it is designed for batched evaluation from scratch:
 
   - all texture state is two dense device tables (a (T,) parameter SoA and
     one stacked (Ti, H, W, 3) image atlas), so a ray batch evaluates every

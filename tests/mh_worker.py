@@ -25,10 +25,9 @@ import numpy as np  # noqa: E402
 
 # same persistent compile cache as tests/conftest.py (workers are fresh
 # processes, so without it every spawn recompiles the shard_map programs)
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                 "/tmp/kytpu-test-jaxcache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+from kytpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache(min_compile_secs=0.1)
 
 from kytpu.dist import multihost  # noqa: E402
 

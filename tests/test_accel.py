@@ -113,8 +113,7 @@ def test_grid_render_matches_sweep_render():
 
 
 def test_accel_opt_in():
-    # "auto" keeps the dense sweep (measured faster on v5e at all scales
-    # up to 4k surfaces); the grid is explicit opt-in
+    # "auto" keeps the dense sweep; the grid is explicit opt-in
     auto = builders.random_spheres(n=300, seed=0)
     assert auto.accel is None
     big = builders.random_spheres(n=300, seed=0, accel="grid")

@@ -129,44 +129,6 @@ def test_bigscene_matches_baked_same_draws():
     assert np.abs(lb - lk).max() < 1e-3, np.abs(lb - lk).max()
 
 
-def test_bigscene_mxu_sweep_matches_scalar():
-    """Pins the round-5 CPU parity measurement: the MXU matmul-form sweeps
-    (sweep="mxu", the default past 64 surfaces) must agree with the scalar
-    fori_loop sweeps to ~1 ulp on renders, and the residual backward's
-    gradients must match (the backward is sweep-free cache algebra, so any
-    gradient drift means the forward's winner resolve diverged)."""
-    scene = builders.random_spheres(n=16, width=12, height=12, seed=2)
-    n = 144
-    pid = jnp.arange(n, dtype=jnp.int32)
-    px = (pid % 12).astype(jnp.float32) + 0.5
-    py = (pid // 12).astype(jnp.float32) + 0.5
-    o, d = kscene.generate_rays(scene.camera, jnp.stack([px, py], -1))
-    seed = jnp.int32(11)
-    env0 = jnp.asarray(scene.env_radiance_)
-    p0 = (scene.mat_diffuse, scene.mat_specular, scene.emission, env0)
-    out, grads = {}, {}
-    for sweep in ("scalar", "mxu"):
-        # depth 1 still sweeps secondary (hemispherical) rays: the kernel
-        # runs bounces 0..max_depth inclusive
-        cfg = wf.KernelConfig(max_depth=1, rows=8, sweep=sweep)
-        dtr = bs.make_bigscene_diff_tracer(scene, cfg, interpret=True)
-
-        def loss(diffuse, specular, emission, env):
-            rad = dtr(diffuse, specular, emission, env, o, d, seed)
-            return jnp.mean(rad), rad
-
-        (_, rad), g = jax.value_and_grad(
-            loss, argnums=(0, 1, 2, 3), has_aux=True)(*p0)
-        out[sweep], grads[sweep] = np.asarray(rad), g
-    assert np.isfinite(out["mxu"]).all()
-    # identical draws; winners may flip only on exact grazing ties
-    agree = np.all(np.abs(out["mxu"] - out["scalar"]) < 1e-5, axis=-1)
-    assert agree.mean() > 0.99, agree.mean()
-    for gm, gs in zip(grads["mxu"], grads["scalar"]):
-        np.testing.assert_allclose(np.asarray(gm), np.asarray(gs),
-                                   rtol=1e-4, atol=1e-6)
-
-
 @pytest.mark.slow
 def test_bigscene_render_matches_fast():
     """Statistical: interpret-mode table kernel vs the fast integrator."""
@@ -268,17 +230,29 @@ def test_bigscene_grad_matches_baked():
 
 
 def test_bigscene_texture_support_boundary():
-    """Kernel-SUPPORTED textures (planar checker, small pow2 image
-    atlases) now extract fine — see test_bigscene_textures_match_baked —
-    while textures the in-kernel machinery cannot evaluate (here: a
-    non-power-of-two image) are still rejected with the baked kernel's
-    reason string."""
-    ok = builders.cornell_box(width=16, height=16, floor_checker=True)
-    bs.extract_tables(ok)   # must not raise
+    """Planar checker and image textures of any atlas size (here a
+    non-power-of-two image, fetched with gathered loads) extract fine,
+    while geometry the table sweeps cannot represent (a non-parallelogram
+    rect) is rejected explicitly — by extract_tables and by the routing
+    predicate every engine="pallas" entry point uses."""
     import numpy as _np
-    bad = builders.cornell_box(
-        width=16, height=16,
+    from kytpu.light import lights as klights
+    ok = builders.cornell_box(
+        width=16, height=16, floor_checker=True,
         back_image=_np.zeros((6, 6, 3), _np.float32))   # not pow2
+    bs.extract_tables(ok)   # must not raise
+    assert bs.ineligibility(ok) is None
+    a = builders._SceneAssembler()
+    a.surface(a.geo.add_rectangle((-1.0, 0.0, -1.0), (1.0, 0.0, -1.0),
+                                  (0.5, 0.0, 1.0), (-0.5, 0.0, 1.0)),
+              a.matte(jnp.full(3, 0.5)))
+    a.add_light(kind=klights.POINT, emit=_np.full(3, 5.0, _np.float32),
+                position=_np.asarray([0.0, 3.0, 0.0], _np.float32))
+    bad = a.build(kscene.make_camera(
+        position=(0.0, 2.0, 4.0), front=(0.0, -0.4, -1.0),
+        up=(0.0, 1.0, 0.0), fov_degrees=40.0, width=8, height=8))
+    assert "parallelogram" in bs.ineligibility(bad)
+    assert not bs.use_table_kernel(bad)
     with pytest.raises(NotImplementedError):
         bs.extract_tables(bad)
 
@@ -390,9 +364,7 @@ def test_bigscene_exponent_grad_matches_baked():
 def test_bigscene_residual_matches_replay():
     """The coefficient-cache backward (the default) must equal the
     path-replay backward to fp reassociation — same scene, same stream,
-    all five gradient leaves incl. the trainable exponent. Measured on
-    the v5e (2026-08-20): 4.52 vs 2.57 M rays/s fwd+bwd at 1026 surfaces
-    (1.76x), identical gradients."""
+    all five gradient leaves incl. the trainable exponent."""
     scene = builders.cornell_box(width=12, height=12)
     cfg = wf.KernelConfig(max_depth=3, rows=8, trainable_exponent=True)
     tr_res = bs.make_bigscene_diff_tracer(scene, cfg, interpret=True,
@@ -568,8 +540,8 @@ def test_bigscene_texp_plus_texture_gradients():
 def test_bigscene_cull_modes_bitwise_identical():
     """Block culling is exact-conservative: "cone" (primary-bounce only,
     the default), the opt-in "cone+nee" (all-bounce shadow-sweep cull,
-    split compact/unbounded light groups — measured net-negative on v5e
-    but kept as a knob) and "off" must produce bitwise-identical
+    split compact/unbounded light groups, an opt-in knob) and "off" must
+    produce bitwise-identical
     renders."""
     sc = builders.random_spheres(n=40, width=16, height=16, seed=0)
     cam = sc.camera

@@ -421,7 +421,7 @@ def test_sobol_bit_machinery():
     assert_02(d0, d1, 256)
 
     ph = jnp.full((256,), np.int32(-1234567))
-    rng = wf._Rng(np.int32(42), False, sobol=(i, ph))
+    rng = wf._Rng(np.int32(42), sobol=(i, ph))
     u1, u2 = rng.uniform2((256,))
     assert_02(np.asarray(u1), np.asarray(u2), 256)
     # 1D sites are stratified too
@@ -633,7 +633,7 @@ def test_residual_backward_matches_replay():
 
 def test_v3_dot_constant_folding_semantics():
     """V3.dot folds exact-0 / +-1 CONSTANT components at trace time
-    (Mosaic cannot fold x*0 under IEEE): results must equal the full dot
+    (compilers cannot fold x*0 under IEEE): results must equal the full dot
     bitwise for finite operands, the all-zero case must return a
     correctly-shaped zero, and const-const dots must stay scalars."""
     import numpy as np

@@ -151,8 +151,7 @@ class TestKernels:
         o, d = kscene.generate_rays(scene.camera,
                                     jnp.stack([px, py], -1))
         cfg = wf.KernelConfig(max_depth=1, shadow="robust")
-        tr = bs.make_bigscene_tracer(scene, cfg, interpret=True,
-                                     _hash_rng=True)
+        tr = bs.make_bigscene_tracer(scene, cfg, interpret=True)
         out = np.asarray(tr(scene, o, d, jnp.int32(5)))
         m_jnp = _li_mean(scene, o, d,
                          kfast.FastConfig(max_depth=1, shadow="robust"),

@@ -8,9 +8,9 @@ for a pure-Monte-Carlo noise floor, and FAILS if the cross-renderer
 difference exceeds ``--tolerance`` times that floor (default 1.5, from the
 round-1 measurements: 0.0055 cross vs 0.0042 floor).
 
-Intended as the periodic parity job (docs/ROADMAP.md item 6):
+Intended as the periodic parity job:
 
-    python tools/parity_ci.py            # full gate, 64 spp (TPU: ~5 min)
+    python tools/parity_ci.py            # full gate, 64 spp
     python tools/parity_ci.py --spp 16   # quicker, noisier floor
 """
 
